@@ -11,9 +11,11 @@ construct -> chainable setters -> ``load()`` -> use.
 It runs on CUDA unless ``device`` names another device; without CUDA the
 default raises.  Weights come from ``with_params`` (for example
 ``weights.params_from_jax_numpy`` of a JAX parameter tree) or are drawn at
-random from ``seed``.  Checkpoint import, the streaming models, speaker
-identification, word timestamps and the rest of the JAX ``Transcriber``'s
-surface (``transcribe_wav``, streams) are not ported yet (ROADMAP.md).
+random from ``seed``.  Word timestamps (``with_options(word_timestamps=True)``)
+come from the decoder's cross-attention, as in the JAX package.
+Checkpoint import, the streaming models, speaker identification and the
+rest of the JAX ``Transcriber``'s surface (``transcribe_wav``, streams)
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("encoder_attention",)
+KERNELS = ("encoder_attention", "beam_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -51,23 +51,31 @@ def library_path(name: str) -> Path:
 
 
 def build(names=KERNELS) -> dict[str, Path]:
-    """Compile every missing library of ``names``, one ``nvcc`` each.
-    Returns the library paths."""
+    """Compile every missing library of ``names``, one ``nvcc`` each, all
+    started together.  Returns the library paths."""
     paths = {n: library_path(n) for n in names}
-    for name, path in paths.items():
-        if path.exists():
-            continue
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    missing = {n: p for n, p in paths.items() if not p.exists()}
+    if not missing:
+        return paths
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in missing:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                              capture_output=True, text=True)
+        jobs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
-                               f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, missing[name])  # atomic: a loader never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths
 
 

@@ -44,9 +44,9 @@ class AsrBackend(Protocol):
 class OfflineBackend:
     """Whole-segment greedy transcription with duration bucketing.
 
-    Runs on the device that holds ``model``.  Word timestamps need the
-    cross-attention alignment (``pipeline/alignment.py``), which is not
-    ported yet.
+    Runs on the device that holds ``model``.  With ``word_timestamps`` a
+    final segment also gets per-word times from the decoder's
+    cross-attention (``pipeline/alignment.py``).
     """
 
     def __init__(
@@ -60,10 +60,6 @@ class OfflineBackend:
         word_timestamps: bool = False,
         kv_int8: bool = False,
     ):
-        if word_timestamps:
-            raise NotImplementedError(
-                "word timestamps are not ported yet (pipeline/alignment.py, "
-                "see ROADMAP.md queue 1)")
         self.model = model
         self.device = next(model.parameters()).device
         self.cfg = cfg
@@ -71,10 +67,30 @@ class OfflineBackend:
         self.max_tokens_per_second = max_tokens_per_second
         self.min_bucket = min_bucket_seconds
         self.max_bucket = max_bucket_seconds
+        self.word_timestamps = word_timestamps
         self.kv_int8 = kv_int8
 
     def reset(self) -> None:
         pass
+
+    def _align(self, memory, mask, ids: np.ndarray, duration: float) -> list:
+        """A second, teacher-forced decoder pass over ``[BOS] + ids`` that
+        collects the cross-attention, then DTW (``alignment.align_words``)."""
+        from .alignment import align_words
+
+        dec = self.model.decoder
+        seq = np.concatenate([[self.cfg.decoder_start_token_id], ids]).astype(np.int64)
+        k_cross, v_cross = mm.compute_cross_kv(dec, self.cfg, memory)
+        cache = mm.init_cache(self.cfg, 1, len(seq), k_cross, v_cross, mask)
+        seq_t = torch.from_numpy(seq)[None].to(self.device)
+        _, _, cross_w = mm.decoder_apply(dec, self.cfg, seq_t, cache,
+                                         collect_cross_attention=True)
+        # cross_w: [L, B, H, steps, frames] -> [L*H, steps, frames(valid)]
+        w = cross_w[:, 0].cpu().numpy()
+        n_frames = int(mask[0].sum())
+        att = w.reshape(-1, w.shape[2], w.shape[3])[:, :, :n_frames]
+        tokens = [int(seq[0])] + [int(t) for t in ids] + [self.cfg.eos_token_id]
+        return align_words(att, tokens, duration / max(n_frames, 1), self.tokenizer)
 
     def _bucket_samples(self, n: int) -> int:
         seconds = max(n / INTERNAL_SAMPLE_RATE, 1e-3)
@@ -87,7 +103,7 @@ class OfflineBackend:
     def transcribe_segment(
         self, audio: np.ndarray, segment_id: int, is_final: bool
     ) -> SegmentResult:
-        del segment_id, is_final  # stateless: every pass redecodes fully
+        del segment_id  # stateless: every pass redecodes fully
         audio = np.asarray(audio, np.float32)
         if audio.size < self.cfg.min_samples():
             return SegmentResult("", [])
@@ -106,4 +122,9 @@ class OfflineBackend:
                             token_caps=torch.tensor([cap]), kv_int8=self.kv_int8)
         n = int(res.lengths[0])
         ids = res.tokens[0, :n].cpu().numpy()
-        return SegmentResult(self.tokenizer.tokens_to_text(ids), [])
+        words = []
+        if self.word_timestamps and is_final and n > 0:
+            # Only a complete segment is aligned: an incomplete one is
+            # transcribed whole again at its next update.
+            words = self._align(memory, mask, ids, duration)
+        return SegmentResult(self.tokenizer.tokens_to_text(ids), words)

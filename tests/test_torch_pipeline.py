@@ -131,3 +131,57 @@ def test_transcriber_refuses_what_is_not_ported(tokenizer_path):
                          device="cpu").load()
     with pytest.raises(FileNotFoundError):
         tapi.Transcriber(model=TCFG, device="cpu").load()
+
+
+def _frame_seconds(n_samples: int) -> float:
+    """One encoder frame's duration for a segment of ``n_samples``, as
+    ``OfflineBackend._align`` computes it."""
+    from moonshine_tpu_torch.models.moonshine import frames_for_samples
+
+    return n_samples / 16000 / max(frames_for_samples(TCFG, n_samples), 1)
+
+
+def _assert_words_match(out, ref, frame_s: float):
+    assert [w.text for w in out] == [w.text for w in ref]
+    for a, b in zip(out, ref):
+        assert abs(a.start - b.start) <= frame_s + 1e-6, (a, b)
+        assert abs(a.end - b.end) <= frame_s + 1e-6, (a, b)
+
+
+def test_offline_backend_word_timestamps_match_jax(params, tokenizer_path):
+    jb = JaxOfflineBackend(params, CFG, BinTokenizer.from_file(tokenizer_path),
+                           word_timestamps=True)
+    model = weights.params_from_jax_numpy(jax.tree.map(np.asarray, params), TCFG, "cpu")
+    tb = OfflineBackend(model, TCFG, TorchTokenizer.from_file(tokenizer_path),
+                        word_timestamps=True)
+    n_words = 0
+    for seconds, seed in ((1.3, 1), (2.7, 2)):
+        audio = _speechy_audio(seconds, seed)
+        ref = jb.transcribe_segment(audio, 0, True)
+        out = tb.transcribe_segment(audio, 0, True)
+        assert out.text == ref.text
+        _assert_words_match(out.words, ref.words, _frame_seconds(audio.size))
+        n_words += len(out.words)
+        # An incomplete segment is not aligned.
+        assert tb.transcribe_segment(audio, 0, False).words == []
+    assert n_words > 0, "the random model should emit some words"
+
+
+def test_transcriber_word_timestamps_match_jax(params, tokenizer_path):
+    audio = np.concatenate([_speechy_audio(2.2, 3), np.zeros(8000, np.float32),
+                            _speechy_audio(1.5, 4)])
+    jt = japi.Transcriber(model=CFG, tokenizer_path=tokenizer_path,
+                          options=TranscriberOptions(model=CFG.name)).with_params(params)
+    jt.with_options(vad_threshold=0, word_timestamps=True).load()
+    tt = tapi.Transcriber(model=TCFG, tokenizer_path=tokenizer_path,
+                          options=TorchOptions(model=CFG.name), device="cpu")
+    tt.with_params(weights.params_from_jax_numpy(jax.tree.map(np.asarray, params), TCFG, "cpu"))
+    tt.with_options(vad_threshold=0, word_timestamps=True).load()
+    ref = jt.transcribe(audio)
+    out = tt.transcribe(audio)
+    assert len(out.lines) == len(ref.lines) >= 1
+    for a, b in zip(out.lines, ref.lines):
+        assert a.text == b.text
+        n = int(round(b.duration * 16000))
+        _assert_words_match(a.words, b.words, _frame_seconds(n))
+    assert sum(len(line.words) for line in out.lines) > 0

@@ -8,9 +8,14 @@ the sources in the checkout, holds each kernel against its plain PyTorch
 version on the card, times it beside its bound and PyTorch's own call for
 the same function, drives the offline transcription path through
 ``Transcriber(model="base")`` with random weights (and once with word
-timestamps), checks the card's forward and beam search against the CPU's,
-and runs the bench's batched offline decodes of Moonshine Base (bf16, int8
-KV, 9.26 s clips): greedy, and beam 4 over 128 clips.  Last it runs the
+timestamps), checks the card's forward, beam search and speculative
+decoding against the CPU's, and runs the bench's batched offline decodes of
+Moonshine Base (bf16, int8 KV, 9.26 s clips): greedy, and beam 4 over 128
+clips.  Then the parallel layer's path on a world-1 NCCL group and its 1x1
+mesh (sharded encoder attention, greedy, beam and speculative decoding of
+the mesh's rows; every rank's share of a 4x2 mesh against the unsharded
+kernels), and the bench's speculative configuration (Tiny draft, Base
+verifier).  Last it runs the
 LibriSpeech eval harness with beam 4 on a synthetic corpus.  Every phase
 that fails ends the run with a non-zero exit.  The last two lines of
 standard output are the kernels' JSON summary and the device JSON; a
@@ -37,13 +42,19 @@ import torch
 # Data-sheet peaks of one H100 SXM (used for the bound, not measured).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# Kernel against its plain version, (atol, rtol).  Both round the weights
-# and the output to the I/O dtype at the same points and differ only in
-# float32 summation order, so bf16 outputs may differ by about one rounding
+# Kernel against its plain version, (atol, rtol).  Each kernel rounds at its
+# plain version's points (K1 the weights and the output to the I/O dtype, K2
+# the output only), and the two differ only in float32 summation order, so
+# bf16 outputs may differ by about one rounding
 # step: rtol 8e-3 covers one bf16 step (at most 2^-7 relative) at any
 # magnitude, and atol 4e-3 (twice the largest difference seen on an H100,
 # 1.95e-3) covers outputs near zero, where rtol allows nothing.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (4e-3, 8e-3)}
+# K2 in float32 rounds nothing that its plain version does not: the two differ
+# only in summation order, at most 3.0e-7 on an H100, so atol 2e-6 + rtol
+# 1e-5 leaves a margin of about six.
+TOL_HM = {torch.float32: (2e-6, 1e-5), torch.bfloat16: TOL[torch.bfloat16]}
+SPEC_BATCH = 32  # the bench's speculative phase: Base verifier, Tiny draft, 32 clips
 BATCHED_SECONDS = 9.26  # the bench's clip: T=384 encoder frames
 SAMPLE_RATE = 16000
 BEAM_SIZE = 4  # the bench's offline-beam phase: beam 4, 128 clips
@@ -138,18 +149,93 @@ def phase_kernel_times(ea) -> dict:
     add_mask = torch.zeros((b, 1, 1, t), device="cuda", dtype=dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_time_ms(lambda: sdpa(qs, ks, vs, attn_mask=add_mask))
-    bytes_moved = 4 * b * t * h * hd * q.element_size()  # q, kt, v read; out written
-    flops = 4 * b * h * t * t * hd
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
     res = {"shape": [b, t, h, hd], "dtype": "bfloat16", "kernel_ms": kernel_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms, "bytes": bytes_moved,
-           "flops": flops, "bound_ms": max(t_bytes, t_flops),
-           "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           **attention_bound(b, t, h, hd, dtype, f32_weights=False)}
     log(f"  K1 at B={b} T={t} H={h} hd={hd} bf16: kernel {kernel_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+        f"({res['bound_by']}: {res['bytes'] / 1e6:.1f} MB, {res['flops'] / 1e9:.1f} GFLOP)")
     return res
+
+
+def attention_bound(b, t, h, hd, dtype, f32_weights: bool) -> dict:
+    """The least time of one encoder attention call: q, k, v read and out
+    written once, against its two products of 2*B*H*T^2*hd operations each.
+    Q.K^T takes I/O-dtype operands; P.V takes the weights, which K1 rounds to
+    the I/O dtype and K2 keeps in float32.  A float32-exact product of
+    float32 weights with bf16 values runs on the bf16 tensor cores as three
+    passes (the weights split into three bf16 parts, float32 accumulation),
+    so K2's P.V is priced at a third of the bf16 rate."""
+    bytes_moved = 4 * b * t * h * hd * torch.empty((), dtype=dtype).element_size()
+    half = 2 * b * h * t * t * hd
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    pv_rate = PEAK_FLOPS[torch.bfloat16] / 3 if f32_weights else PEAK_FLOPS[dtype]
+    t_flops = (half / PEAK_FLOPS[dtype] + half / pv_rate) * 1e3
+    return {"bytes": bytes_moved, "flops": 2 * half, "bytes_ms": t_bytes,
+            "operations_ms": t_flops, "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def hm_inputs(b, t, h, hd, dtype, lengths, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, t, h, hd), generator=g).to("cuda", dtype) for _ in range(3))
+    mask = None
+    if lengths is not None:
+        mask = (torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None]).cuda()
+    return q, k, v, mask
+
+
+def phase_hm_vs_plain(ea) -> float:
+    """K2 against its plain version on the card; returns the largest error.
+    Base at the bench's T (ragged lengths, the last row with no valid key;
+    and unmasked), T=415, Tiny's hd=36 and one rank's share of a 4x2 mesh
+    (B/4 rows, H/2 heads)."""
+    worst = 0.0
+    cases = [(16, 384, 8, 52, m) for m in (False, True)] + [
+        (4, 415, 8, 52, True), (4, 384, 8, 36, True), (4, 384, 4, 52, True)]
+    for b, t, h, hd, masked in cases:
+        lengths = [max(t - i * (t // b), 1) for i in range(b - 1)] + [0] if masked else None
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask = hm_inputs(b, t, h, hd, dtype, lengths, seed=b + t + hd + 1)
+            out = ea.encoder_attention(q, k, v, mask)
+            torch.cuda.synchronize()
+            ref = ea._encoder_attention_torch(q, k, v, mask)
+            err = (out.float() - ref.float()).abs()
+            atol, rtol = TOL_HM[dtype]
+            ok = bool((err <= atol + rtol * ref.float().abs()).all()) and bool(out.isfinite().all())
+            worst = max(worst, float(err.max()))
+            log(f"  K2 B={b} T={t} H={h} hd={hd} {str(dtype)[6:]:8s} "
+                f"{'masked' if masked else 'unmasked':8s} max_abs_err={float(err.max()):.3e} "
+                f"tol=atol {atol:g} + rtol {rtol:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"K2 disagrees with its plain version at B={b} T={t} hd={hd}")
+    return worst
+
+
+def phase_hm_times(ea) -> dict:
+    """K2, its plain version and SDPA (head-major views, additive float key
+    mask) in bf16 at the bench shape (Base, B=512, T=384) and at one rank's
+    share of it on a 4x2 mesh ([128, 384, 4, 52])."""
+    out = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, (b, t, h, hd) in (("base", (512, 384, 8, 52)), ("shard_4x2", (128, 384, 4, 52))):
+        dtype = torch.bfloat16
+        q, k, v, _ = hm_inputs(b, t, h, hd, dtype, None, seed=2)
+        kernel_ms = cuda_time_ms(lambda: ea.encoder_attention(q, k, v, None))
+        plain_ms = cuda_time_ms(lambda: ea._encoder_attention_torch(q, k, v, None))
+        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, T, hd] views
+        add_mask = torch.zeros((b, 1, 1, t), device="cuda", dtype=dtype)
+        library_ms = cuda_time_ms(lambda: sdpa(qs, ks, vs, attn_mask=add_mask))
+        res = {"shape": [b, t, h, hd], "dtype": "bfloat16", "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               **attention_bound(b, t, h, hd, dtype, f32_weights=True)}
+        log(f"  K2 at [{b}, {t}, {h}, {hd}] bf16: kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}; bytes {res['bytes'] / 1e6:.1f} MB = {res['bytes_ms']:.4f} ms, "
+            f"{res['flops'] / 1e9:.1f} GFLOP with P.V as three bf16 passes = "
+            f"{res['operations_ms']:.4f} ms)")
+        out[label] = res
+    return out
 
 
 def gather_inputs(shape, dtype, seed):
@@ -568,6 +654,286 @@ def phase_beam_reference(model, cfg) -> dict:
     return out
 
 
+def phase_sharded(ea, bg, cfg, draft_cfg, batch: int, card: str) -> dict:
+    """The parallel layer's inference path on a world-1 NCCL group and its
+    1x1 mesh (the card is one GPU), Base bf16 at ``batch`` clips of 9.26 s:
+    the encode with the sharded packed attention (K1), the sharded
+    head-major attention (K2) on the first encoder layer's own q, k and v,
+    and greedy (int8 KV), beam 4 (int8 KV) and speculative decoding (Tiny
+    draft encoded on the mesh too, gamma 4, float KV) of the mesh's rows,
+    gathered back.  The counts of K1-K4 are set to 0 before that and read
+    after it: K1 launches once per encoder layer of both models, K2 once,
+    K3 and K4 once per beam step.  Then the checks: the sharded encode equals
+    ``attn_impl="auto"`` bit for bit; the sharded K2 equals the unsharded
+    K2 bit for bit and its plain version within ``TOL_HM``; every rank's body of a 4x2 mesh, run here one after another and
+    assembled, equals the unsharded K1 and K2 bit for bit (each (row,
+    head)'s arithmetic is unchanged); the gathered greedy tokens equal an
+    unsharded greedy decode's.  The group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from moonshine_tpu_torch.decoding.beam import beam_decode
+    from moonshine_tpu_torch.decoding.greedy import greedy_decode
+    from moonshine_tpu_torch.decoding.speculative import speculative_decode_batched
+    from moonshine_tpu_torch.models import moonshine as mm
+    from moonshine_tpu_torch.ops.rotary import rotary_tables
+    from moonshine_tpu_torch.parallel.distributed import host_local_batch_to_global, initialize
+    from moonshine_tpu_torch.parallel.mesh import make_mesh
+    from moonshine_tpu_torch.parallel.sharding import shard_batch
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # a group of one host
+    t0 = time.perf_counter()
+    initialize()
+    mesh = make_mesh(data=1, model=1)
+    log(f"  {dist.get_backend()} group of {dist.get_world_size()}, mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}, up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    try:
+        model, audio, caps, max_tokens = _bench_inputs(cfg, batch)
+        draft = draft_model(draft_cfg, torch.bfloat16)
+        counters = (ea.encoder_attention_packed, ea.encoder_attention, bg.gather_kv_rows,
+                    bg.gather_scale_rows)
+        for c in counters:
+            c.launches = 0
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            rows, row_caps = shard_batch(mesh, (audio, caps))
+            memory, mask = mm.encode(model, cfg, rows, attn_impl="pallas_shmap", mesh=mesh)
+            feats, _ = mm.frontend_apply(model.frontend, cfg, rows)
+            cos, sin = rotary_tables(torch.arange(feats.shape[1], device="cuda"), cfg.rotary_dim,
+                                     cfg.rope_theta)
+            q, k, v = (x.view(*x.shape[:2], cfg.encoder_heads, cfg.head_dim) for x in
+                       mm._encoder_qkv(cfg, feats, model.encoder.layers[0], cos, sin))
+            attn = ea.encoder_attention_sharded(q, k, v, None, mesh)
+            greedy = greedy_decode(model, cfg, memory, mask, max_tokens=max_tokens,
+                                   token_caps=row_caps, kv_int8=True)
+            beam = beam_decode(model, cfg, memory, mask, beam_size=BEAM_SIZE,
+                               max_tokens=max_tokens, token_caps=row_caps, kv_int8=True)
+            d_mem, d_mask = mm.encode(draft, draft_cfg, rows, attn_impl="pallas_shmap", mesh=mesh)
+            spec = speculative_decode_batched(draft, draft_cfg, model, cfg, d_mem, d_mask, memory,
+                                              mask, gamma=4, max_tokens=max_tokens,
+                                              token_caps=row_caps)
+            full_memory, greedy_g, beam_g, spec_g = host_local_batch_to_global(
+                mesh, (memory, greedy, beam, spec))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+
+            ref_memory, _ = mm.encode(model, cfg, audio, attn_impl="auto")
+            kt = k.flatten(2).transpose(1, 2).contiguous()
+            k1_ref = ea.encoder_attention_packed(q.flatten(2), kt, v.flatten(2), None,
+                                                 cfg.encoder_heads)
+            k2_ref = ea.encoder_attention(q, k, v, None)
+            k2_plain = ea._encoder_attention_torch(q, k, v, None)
+            k1_bodies, k2_bodies = torch.empty_like(k1_ref), torch.empty_like(k2_ref)
+            shape = (4, 2)
+            rb, hb = batch // shape[0], cfg.encoder_heads // shape[1]
+            for d in range(shape[0]):
+                for m in range(shape[1]):
+                    rows_d = slice(d * rb, (d + 1) * rb)
+                    k2_bodies[rows_d, :, m * hb:(m + 1) * hb] = ea.encoder_attention_sharded_body(
+                        q, k, v, None, (d, m), shape)
+                    lanes = slice(m * hb * cfg.head_dim, (m + 1) * hb * cfg.head_dim)
+                    k1_bodies[rows_d, :, lanes] = ea.encoder_attention_packed_sharded_body(
+                        q.flatten(2), kt, v.flatten(2), None, cfg.encoder_heads, (d, m), shape)
+            greedy_ref = greedy_decode(model, cfg, ref_memory, mask, max_tokens=max_tokens,
+                                       token_caps=caps, kv_int8=True)
+        checks = {
+            "encode pallas_shmap == auto": torch.equal(full_memory, ref_memory),
+            "K2 sharded == unsharded": torch.equal(attn, k2_ref),
+            "K1 4x2 bodies == unsharded": torch.equal(k1_bodies, k1_ref),
+            "K2 4x2 bodies == unsharded": torch.equal(k2_bodies, k2_ref),
+            "greedy on the mesh == unsharded": torch.equal(greedy_g.tokens, greedy_ref.tokens),
+        }
+        for name, ok in checks.items():
+            log(f"  {name}: {'bit-identical' if ok else 'DIFFER'}")
+        atol, rtol = TOL_HM[attn.dtype]
+        k2_err = (attn.float() - k2_plain.float()).abs()
+        checks["K2 sharded ~ plain"] = bool(
+            (k2_err <= atol + rtol * k2_plain.float().abs()).all()) and bool(attn.isfinite().all())
+        log(f"  K2 sharded vs plain on layer 0's q, k, v {tuple(q.shape)} "
+            f"{str(attn.dtype)[6:]}: max_abs_err {float(k2_err.max()):.3e} tol=atol {atol:g} "
+            f"+ rtol {rtol:g} {'ok' if checks['K2 sharded ~ plain'] else 'FAIL'}")
+        for what, res in (("greedy", greedy_g), ("beam", beam_g), ("speculative", spec_g)):
+            check_decode(full_memory, res, cfg, batch, max_tokens, f"{what} on the mesh")
+        log(f"  B={batch} on the mesh: encode, K2 and greedy / beam {BEAM_SIZE} / speculative "
+            f"(gamma 4) decodes in {wall:.3f} s on {card}; speculative rounds {spec.rounds}, "
+            f"accepted draft tokens {int(spec.accepted_draft_tokens.sum())}; launches {launches}")
+        if not all(checks.values()):
+            raise SystemExit("the sharded path differs from the unsharded one")
+        want = {"encoder_attention_packed": cfg.encoder_layers + draft_cfg.encoder_layers,
+                "encoder_attention": 1, "gather_kv_rows": beam.steps,
+                "gather_scale_rows": beam.steps}
+        if launches != want or not beam.steps:
+            raise SystemExit(f"the sharded path launched {launches}, not {want}")
+        return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                "mesh": list(mesh.shape), "batch": batch, "wall_s": wall, "launches": launches,
+                "checks": checks, "spec_rounds": spec.rounds,
+                "spec_accepted": int(spec.accepted_draft_tokens.sum())}
+    finally:
+        dist.destroy_process_group()
+
+
+def draft_model(dcfg, dtype):
+    """The speculative draft on the card: random weights from seed 1, an
+    unrelated model to the verifier's seed 0."""
+    from moonshine_tpu_torch.models import moonshine as mm
+
+    return mm.init_params(dcfg, torch.Generator().manual_seed(1)).to("cuda", dtype)
+
+
+def speculative_workload(vcfg, dcfg, batch: int):
+    """The JAX bench's speculative configuration (bench.py spec_bench) on
+    the card: the bench's inputs (_bench_inputs: Base verifier in bf16,
+    ``batch`` clips of 9.26 s, 60 tokens), a Tiny draft in bf16, gamma 4,
+    float KV.  Returns (encode, decode, max_tokens): encode() gives (draft
+    memory, mask, verifier memory, mask); decode(*memories, kind=) the floor
+    (the unrelated random draft; the default), the ceiling (the verifier as
+    its own draft) or the verifier's greedy decode.
+    scripts/torch_profile.py --decode speculative traces the floor."""
+    from moonshine_tpu_torch.decoding.greedy import greedy_decode
+    from moonshine_tpu_torch.decoding.speculative import speculative_decode_batched
+    from moonshine_tpu_torch.models import moonshine as mm
+
+    verify, audio, caps, max_tokens = _bench_inputs(vcfg, batch)
+    draft = draft_model(dcfg, torch.bfloat16)
+
+    def encode():
+        return (*mm.encode(draft, dcfg, audio), *mm.encode(verify, vcfg, audio))
+
+    def decode(d_mem, d_mask, v_mem, v_mask, kind: str = "floor"):
+        if kind == "greedy":
+            return greedy_decode(verify, vcfg, v_mem, v_mask, max_tokens=max_tokens,
+                                 token_caps=caps)
+        pair = (draft, dcfg, d_mem, d_mask) if kind == "floor" else (verify, vcfg, v_mem, v_mask)
+        return speculative_decode_batched(pair[0], pair[1], verify, vcfg, pair[2], pair[3],
+                                          v_mem, v_mask, gamma=4, max_tokens=max_tokens,
+                                          token_caps=caps)
+
+    return encode, decode, max_tokens
+
+
+def phase_speculative(vcfg, dcfg, batch: int, card: str) -> dict:
+    """speculative_workload: three decodes of the same memories, the
+    floor, the ceiling and the verifier's greedy decode; each one warm-up
+    and the best of 2.  audio-s/s counts the decode only, as the bench
+    does."""
+    encode, decode, max_tokens = speculative_workload(vcfg, dcfg, batch)
+    with torch.inference_mode():
+        memories = encode()
+    v_mem = memories[2]
+    runs = {kind: (lambda kind=kind: decode(*memories, kind=kind))
+            for kind in ("floor", "ceiling", "greedy")}
+    out = {"batch": batch, "max_tokens": max_tokens, "gamma": 4}
+    results = {}
+    for name, fn in runs.items():
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        results[name] = res
+        best = min(walls[1:])
+        row = {"wall_s": walls[1:], "audio_s_per_s": batch * BATCHED_SECONDS / best,
+               "mean_tokens": float(res.lengths.float().mean())}
+        if name != "greedy":
+            row.update(rounds=res.rounds, accepted=int(res.accepted_draft_tokens.sum()),
+                       emitted=int(res.lengths.sum()))
+        out[name] = row
+        check_decode(v_mem, res, vcfg, batch, max_tokens, f"speculative {name}")
+        log(f"  {name:8s} B={batch} x {BATCHED_SECONDS} s, {max_tokens} tokens, bf16, float KV: "
+            f"best {best:.4f} s -> {row['audio_s_per_s']:.2f} audio-s/s on {card}"
+            + (f"; {row['rounds']} rounds, {row['accepted']} accepted draft tokens of "
+               f"{int(res.lengths.sum())} emitted" if name != "greedy" else
+               f"; mean tokens {row['mean_tokens']:.1f}"))
+    match = float((results["ceiling"].tokens == results["greedy"].tokens).float().mean())
+    out["ceiling_greedy_token_match"] = match
+    log(f"  ceiling vs greedy token match {match:.4f} (bf16: the verify pass over 5 tokens and "
+        "the greedy step over 1 may round apart; the float32 reference phase holds them equal)")
+    return out
+
+
+def _verifier_margin(model, cfg, memory, mask, tokens, step: int, kv_int8: bool) -> float:
+    """The gap between the verifier's two best logits at ``step``, teacher-
+    forced on ``tokens`` (one lane, on the model's device)."""
+    from moonshine_tpu_torch.decoding import speculative as sp
+    from moonshine_tpu_torch.models import moonshine as mm
+    from moonshine_tpu_torch.ops.int8_kv import quantize_kv
+
+    dev = memory.device
+    seq = torch.cat([torch.tensor([cfg.decoder_start_token_id], device=dev), tokens[:step]])
+    kc, vc = mm.compute_cross_kv(model.decoder, cfg, memory)
+    ks = vs = None
+    if kv_int8:
+        kc, ks = quantize_kv(kc)
+        vc, vs = quantize_kv(vc)
+    shape = (cfg.decoder_layers, 1, cfg.decoder_kv_heads, cfg.head_dim, seq.numel())
+    k_self, v_self = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
+    with torch.inference_mode():
+        cursor = torch.zeros(1, dtype=torch.long, device=dev)
+        logits = sp._decoder_apply_vec(model.decoder, cfg, seq[None], cursor, k_self, v_self,
+                                       kc, vc, mask, ks, vs)
+    top = logits[0, -1].topk(2).values
+    return float(top[0] - top[1])
+
+
+def phase_speculative_reference(verify, vcfg, dcfg) -> dict:
+    """Speculative decoding on the card against the CPU's, Base verifier
+    (the main path's float32 model) and Tiny draft in float32, 2 clips of 4
+    and 2.5 s, 12 tokens, gamma 1 and 4, float and int8 cross KV: the
+    tokens equal the CPU's, and with float KV also the verifier's greedy
+    decode on the card.  Where card and CPU differ, the CPU verifier's
+    top-2 logit margin at the first differing step is printed."""
+    from moonshine_tpu_torch.decoding.greedy import greedy_decode
+    from moonshine_tpu_torch.decoding.speculative import speculative_decode_batched
+    from moonshine_tpu_torch.models import moonshine as mm
+
+    draft = draft_model(dcfg, torch.float32)
+    clips = [synthetic_clip(s, 30 + i) for i, s in enumerate((4.0, 2.5))]
+    audio = torch.zeros(2, len(clips[0]))
+    for i, c in enumerate(clips):
+        audio[i, :len(c)] = torch.from_numpy(c)
+    lengths = torch.tensor([len(c) for c in clips])
+    models = {"cuda": (verify, draft),
+              "cpu": (copy.deepcopy(verify).to("cpu"), copy.deepcopy(draft).to("cpu"))}
+    mems = {}
+    with torch.inference_mode():
+        for dev, (vm, dm) in models.items():
+            mems[dev] = (*mm.encode(dm, dcfg, audio.to(dev), lengths.to(dev)),
+                         *mm.encode(vm, vcfg, audio.to(dev), lengths.to(dev)))
+        greedy = greedy_decode(verify, vcfg, *mems["cuda"][2:], max_tokens=12)
+    out, failed = {}, False
+    for gamma in (1, 4):
+        for kv_int8 in (False, True):
+            res = {dev: speculative_decode_batched(
+                dm, dcfg, vm, vcfg, *mems[dev], gamma=gamma, max_tokens=12, kv_int8=kv_int8)
+                for dev, (vm, dm) in models.items()}
+            same_cpu = (torch.equal(res["cuda"].tokens.cpu(), res["cpu"].tokens)
+                        and torch.equal(res["cuda"].lengths.cpu(), res["cpu"].lengths))
+            same_greedy = torch.equal(res["cuda"].tokens, greedy.tokens)
+            key = f"gamma={gamma} kv_int8={kv_int8}"
+            out[key] = {"equal_cpu": same_cpu, "equal_greedy": same_greedy,
+                        "lengths": res["cuda"].lengths.tolist(), "rounds": res["cuda"].rounds}
+            log(f"  {key}: card == cpu {same_cpu}; card == card greedy {same_greedy}; lengths "
+                f"{res['cuda'].lengths.tolist()}, {res['cuda'].rounds} rounds, accepted "
+                f"{res['cuda'].accepted_draft_tokens.tolist()}")
+            if not same_cpu:
+                diff = (res["cuda"].tokens.cpu() != res["cpu"].tokens)
+                lane, step = (int(x) for x in diff.nonzero()[0])
+                margin = _verifier_margin(models["cpu"][0], vcfg, mems["cpu"][2][lane:lane + 1],
+                                          mems["cpu"][3][lane:lane + 1], res["cpu"].tokens[lane],
+                                          step, kv_int8)
+                out[key]["cpu_top2_margin"] = margin
+                log(f"    first difference: clip {lane}, step {step}; CPU verifier top-2 logit "
+                    f"margin there {margin:.3e}")
+                failed = True
+            if not kv_int8 and not same_greedy:
+                failed = True
+    if failed:
+        raise SystemExit("speculative decoding on the card disagrees with the CPU or with greedy")
+    return out
+
+
 def phase_eval(bg, cfg, tok_path: str, root: str, card: str) -> dict:
     """The LibriSpeech harness (eval/librispeech.py) with beam 4 on Base
     bf16 over 16 synthetic wav + txt clips of 3-14 s.  The weights are
@@ -619,7 +985,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 2
-    from moonshine_tpu_torch.core.config import BASE
+    from moonshine_tpu_torch.core.config import BASE, TINY
     from moonshine_tpu_torch.core.tokenizer import BinTokenizer
     from moonshine_tpu_torch.ops import _build
     from moonshine_tpu_torch.ops import beam_gather as bg
@@ -640,10 +1006,14 @@ def main() -> int:
 
     log("[kernel vs plain] K1")
     max_err = phase_kernel_vs_plain(ea)
+    log("[kernel vs plain] K2")
+    hm_err = phase_hm_vs_plain(ea)
     log("[kernel vs plain] K3, K4")
     gather_err = phase_gather_vs_plain(bg)
     log("[kernel times] K1")
     times = phase_kernel_times(ea)
+    log("[kernel times] K2")
+    hm_times = phase_hm_times(ea)
     log("[kernel times] K3, K4")
     gather_times = phase_gather_times(bg)
 
@@ -664,11 +1034,17 @@ def main() -> int:
         words = phase_word_timestamps(model, tok_path)
         log("[beam reference check]")
         beam_ref = phase_beam_reference(model, BASE)
+        log("[speculative reference]")
+        spec_ref = phase_speculative_reference(model, BASE, TINY)
         del model
         log("[batched offline decode]")
         batched = phase_batched(ea, BASE, args.batch, card)
         log("[batched beam]")
         beam = phase_beam(ea, bg, BASE, args.beam_batch, card)
+        log("[sharded path]")
+        sharded = phase_sharded(ea, bg, BASE, TINY, args.batch, card)
+        log("[speculative]")
+        speculative = phase_speculative(BASE, TINY, SPEC_BATCH, card)
         log("[eval harness]")
         corpus = os.path.join(tmp, "corpus")
         os.makedirs(corpus)
@@ -685,6 +1061,21 @@ def main() -> int:
         "ms": times["kernel_ms"], "kernel_ms": times["kernel_ms"],
         "plain_ms": times["plain_ms"], "library_ms": times["library_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+    }, {
+        "name": "encoder_attention", "route": "cuda",
+        "source": "moonshine_tpu_torch/csrc/encoder_attention.cu",
+        "replaces": "moonshine_tpu/ops/encoder_attention.py:43",
+        "launches": sharded["launches"]["encoder_attention"], "max_abs_err": hm_err,
+        "tol": {k: list(TOL_HM[getattr(torch, k)]) for k in ("float32", "bfloat16")},
+        "ms": hm_times["base"]["kernel_ms"], "kernel_ms": hm_times["base"]["kernel_ms"],
+        "plain_ms": hm_times["base"]["plain_ms"], "library_ms": hm_times["base"]["library_ms"],
+        "bound_ms": hm_times["base"]["bound_ms"], "bound_by": hm_times["base"]["bound_by"],
+        "bytes_ms": hm_times["base"]["bytes_ms"],
+        "operations_ms": hm_times["base"]["operations_ms"],
+        "shard_4x2_ms": hm_times["shard_4x2"]["kernel_ms"],
+        "shard_4x2_plain_ms": hm_times["shard_4x2"]["plain_ms"],
+        "shard_4x2_library_ms": hm_times["shard_4x2"]["library_ms"],
+        "shard_4x2_bound_ms": hm_times["shard_4x2"]["bound_ms"],
     }, gather_entry("gather_kv_rows", "moonshine_tpu/ops/beam_gather.py:30",
                     beam["launches"]["gather_kv_rows"], gather_err, k3,
                     {"bf16_ms": k3_bf16["kernel_ms"], "bf16_plain_ms": k3_bf16["plain_ms"],
@@ -692,10 +1083,12 @@ def main() -> int:
         gather_entry("gather_scale_rows", "moonshine_tpu/ops/beam_gather.py:76",
                      beam["launches"]["gather_scale_rows"], gather_err, k4)]
     record = {"card": card, "torch": torch.__version__, "kernels": kernels,
-              "kernel_times": times, "gather_times": gather_times, "main_path": main_path,
-              "reference_check": ref, "word_timestamps": words,
-              "beam_reference_check": beam_ref, "batched": batched,
-              "beam": beam, "eval": evaluation, "total_s": time.perf_counter() - t_start}
+              "kernel_times": times, "hm_times": hm_times, "gather_times": gather_times,
+              "main_path": main_path, "reference_check": ref, "word_timestamps": words,
+              "beam_reference_check": beam_ref, "speculative_reference": spec_ref,
+              "batched": batched, "beam": beam, "sharded": sharded,
+              "speculative": speculative, "eval": evaluation,
+              "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..core.config import MoonshineArchConfig
 from ..core.device import resolve_device
-from ..ops.encoder_attention import encoder_attention_packed
+from ..ops.encoder_attention import encoder_attention_packed, encoder_attention_packed_sharded
 from ..ops.int8_kv import attention_dm_q8, attention_dm_q8_with_weights, quantize_kv
 from ..ops.rotary import (
     apply_rotary,
@@ -51,7 +51,7 @@ from .layers import (
 )
 
 NEG_INF = -1e9  # large-negative mask value; avoids NaN from (-inf) - (-inf)
-ATTN_IMPLS = ("auto", "xla")
+ATTN_IMPLS = ("auto", "xla", "pallas_shmap")
 
 
 # =========================================================================
@@ -298,10 +298,11 @@ def lane_aligned_samples(cfg: MoonshineArchConfig, n: int, align: int = 128) -> 
     return n
 
 
-def _encoder_layer_apply(cfg: MoonshineArchConfig, h: torch.Tensor, lp: EncoderLayer,
-                         cos, sin, frame_mask, attn_impl: str) -> torch.Tensor:
-    eps = cfg.layer_norm_eps
-    x = layer_norm(lp.ln1, h, eps)
+def _encoder_qkv(cfg: MoonshineArchConfig, h: torch.Tensor, lp: EncoderLayer,
+                 cos, sin) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An encoder layer's attention inputs from its input ``h``: q and k
+    with rotary, and v, each [B, T, heads * hd] (heads not split)."""
+    x = layer_norm(lp.ln1, h, cfg.layer_norm_eps)
     a = lp.attn
     hd = cfg.head_dim
     # The pair-swapped projections (prepare_rotary_params) give the rotary's
@@ -310,12 +311,23 @@ def _encoder_layer_apply(cfg: MoonshineArchConfig, h: torch.Tensor, lp: EncoderL
                                     cfg.encoder_heads)
     k_full = apply_rotary_fullwidth(dense(a.k, x), dense(a.k_swapped, x), cos, sin, hd,
                                     cfg.encoder_kv_heads)
-    v_full = dense(a.v, x)
+    return q_full, k_full, dense(a.v, x)
+
+
+def _encoder_layer_apply(cfg: MoonshineArchConfig, h: torch.Tensor, lp: EncoderLayer,
+                         cos, sin, frame_mask, attn_impl: str, mesh=None) -> torch.Tensor:
+    eps = cfg.layer_norm_eps
+    a = lp.attn
+    q_full, k_full, v_full = _encoder_qkv(cfg, h, lp, cos, sin)
     if attn_impl == "auto":
         # q/v stay [B, T, D]; K goes dim-major once, as the kernel reads it.
         o_full = encoder_attention_packed(
             q_full, k_full.transpose(1, 2).contiguous(), v_full, frame_mask,
             heads=cfg.encoder_heads)
+    elif attn_impl == "pallas_shmap":
+        o_full = encoder_attention_packed_sharded(
+            q_full, k_full.transpose(1, 2).contiguous(), v_full, frame_mask,
+            cfg.encoder_heads, mesh)
     else:
         mask = None if frame_mask is None else frame_mask[:, None, None, :]
         o = _attention(_split_heads(q_full, cfg.encoder_heads),
@@ -328,17 +340,21 @@ def _encoder_layer_apply(cfg: MoonshineArchConfig, h: torch.Tensor, lp: EncoderL
     return h + dense(lp.mlp.fc2, act(dense(lp.mlp.fc1, x)))
 
 
-def _check_attn_impl(cfg: MoonshineArchConfig, attn_impl: str) -> None:
+def _check_attn_impl(cfg: MoonshineArchConfig, attn_impl: str, mesh) -> None:
     """"auto" is the packed attention (its wrapper launches the CUDA kernel
     on CUDA tensors and runs the plain version on CPU tensors); "xla" is the
-    split-head attention of the JAX package's XLA path."""
+    split-head attention of the JAX package's XLA path; "pallas_shmap" is the
+    packed attention on a (data, model) ``mesh``, its heads split over
+    ``model`` (``encoder_attention_packed_sharded``)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    if attn_impl == "auto" and cfg.encoder_kv_heads != cfg.encoder_heads:
+    if attn_impl != "xla" and cfg.encoder_kv_heads != cfg.encoder_heads:
         raise ValueError(
             f"the packed encoder attention needs encoder_kv_heads "
             f"({cfg.encoder_kv_heads}) == encoder_heads ({cfg.encoder_heads}); "
             f"pass attn_impl='xla'")
+    if (attn_impl == "pallas_shmap") != (mesh is not None):
+        raise ValueError("attn_impl='pallas_shmap' needs a mesh, and only it takes one")
 
 
 def encoder_apply(
@@ -347,15 +363,17 @@ def encoder_apply(
     features: torch.Tensor,  # [B, T, D]
     frame_mask: torch.Tensor | None = None,  # [B, T] bool
     attn_impl: str = "auto",
+    mesh=None,  # a (data, model) DeviceMesh, for attn_impl="pallas_shmap"
 ) -> torch.Tensor:
-    """Rotary transformer encoder -> [B, T, D] hidden states."""
-    _check_attn_impl(cfg, attn_impl)
+    """Rotary transformer encoder -> [B, T, D] hidden states.  With a mesh,
+    ``features`` are this rank's rows (parallel.sharding.shard_batch)."""
+    _check_attn_impl(cfg, attn_impl, mesh)
     t = features.shape[1]
     cos, sin = rotary_tables(torch.arange(t, device=features.device), cfg.rotary_dim,
                              cfg.rope_theta)
     h = features
     for lp in p.layers:
-        h = _encoder_layer_apply(cfg, h, lp, cos, sin, frame_mask, attn_impl)
+        h = _encoder_layer_apply(cfg, h, lp, cos, sin, frame_mask, attn_impl, mesh)
     return layer_norm(p.norm, h, cfg.layer_norm_eps)
 
 
@@ -365,11 +383,12 @@ def encode(
     audio: torch.Tensor,
     lengths: torch.Tensor | None = None,
     attn_impl: str = "auto",
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """audio [B, N] -> (memory [B, T, D], frame_mask [B, T])."""
     feats, mask = frontend_apply(model.frontend, cfg, audio, lengths)
     memory = encoder_apply(model.encoder, cfg, feats, mask if lengths is not None else None,
-                           attn_impl=attn_impl)
+                           attn_impl=attn_impl, mesh=mesh)
     return memory, mask
 
 

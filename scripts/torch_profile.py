@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's batched offline decode.
 
-    python3 scripts/torch_profile.py [--decode greedy|beam] [--batch N]
+    python3 scripts/torch_profile.py [--decode greedy|beam|speculative] [--batch N]
 
 Profiles the workload of one of ``chip_smoke.py``'s batched phases:
 ``chip_smoke.batched_workload`` (greedy, the default; batch 64) or
 ``chip_smoke.beam_workload`` (beam 4; batch 128 utterances, the bench's),
 both Moonshine Base, bf16, int8 KV, 9.26 s clips, random weights, decoding
-to the full token cap.  After a warm-up it traces one encode and one whole
+to the full token cap; or ``chip_smoke.speculative_workload`` (the floor:
+Base verifier, Tiny draft, gamma 4, float KV, batch 32, the bench's).  After a warm-up it traces one encode and one whole
 decode with ``torch.profiler``
 and prints, for each, from that one traced run: its wall time, the summed
 device time of its kernels, the device's idle share over the wall time, and
@@ -28,12 +29,12 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import batched_workload, beam_workload  # noqa: E402
-from moonshine_tpu_torch.core.config import BASE  # noqa: E402
+from chip_smoke import batched_workload, beam_workload, speculative_workload  # noqa: E402
+from moonshine_tpu_torch.core.config import BASE, TINY  # noqa: E402
 from moonshine_tpu_torch.core.device import resolve_device  # noqa: E402
 
 
-OWN_KERNELS = ("packed_attention", "gather_rows")  # csrc/*.cu
+OWN_KERNELS = ("encoder_attention_kernel", "gather_rows")  # csrc/*.cu
 
 
 def device_us(prof) -> tuple[float, list]:
@@ -45,28 +46,31 @@ def device_us(prof) -> tuple[float, list]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--decode", choices=("greedy", "beam"), default="greedy")
+    ap.add_argument("--decode", choices=("greedy", "beam", "speculative"), default="greedy")
     ap.add_argument("--batch", type=int, default=None,
-                    help="utterances (default 64 for greedy, 128 for beam)")
+                    help="utterances (default 64 for greedy, 128 for beam, 32 for speculative)")
     args = ap.parse_args()
     resolve_device()  # raises without CUDA
-    workload = batched_workload if args.decode == "greedy" else beam_workload
-    args.batch = args.batch or (64 if args.decode == "greedy" else 128)
-    encode, decode, max_tokens = workload(BASE, args.batch)
+    args.batch = args.batch or {"greedy": 64, "beam": 128, "speculative": 32}[args.decode]
+    if args.decode == "speculative":
+        encode, decode, max_tokens = speculative_workload(BASE, TINY, args.batch)
+    else:
+        workload = batched_workload if args.decode == "greedy" else beam_workload
+        encode, decode, max_tokens = workload(BASE, args.batch)
 
     with torch.inference_mode():
-        memory, mask = encode()
-        decode(memory, mask)
+        memories = encode()
+        decode(*memories)
         torch.cuda.synchronize()
         os.makedirs("chiprun_out", exist_ok=True)
-        for name, fn in (("encode", encode), ("decode", lambda: decode(memory, mask))):
+        for name, fn in (("encode", encode), ("decode", lambda: decode(*memories))):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
             busy, rows = device_us(prof)
-            steps = f", {max_tokens} steps" if name == "decode" else ""
+            steps = f", {max_tokens} tokens" if name == "decode" else ""
             print(f"[{name}] {args.decode} B={args.batch}{steps}: wall {wall_us / 1e3:.3f} ms, "
                   f"kernels {busy / 1e3:.3f} ms, device idle share {1 - busy / wall_us:.3f}, "
                   f"{sum(e.count for e in rows)} kernel launches")

@@ -130,3 +130,100 @@ def test_cuda_kernel_matches_plain(cuda_device, b, t, h, hd, dtype):
         ref = ea._encoder_attention_packed_torch(q, kt, v, m, h)
         tol = F32 if dtype == torch.float32 else BF16_KERNEL
         torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+# -- K2: head-major attention (the Pallas _attn_kernel) ---------------------
+
+def _run_both_hm(q, k, v, mask, dtype):
+    import jax.numpy as jnp
+
+    from moonshine_tpu.ops.encoder_attention import encoder_attention as jax_hm
+
+    jt, tt = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    ref = jax_hm(*(jnp.asarray(x).astype(jt) for x in (q, k, v)),
+                 None if mask is None else jnp.asarray(mask), interpret=True)
+    out = ea.encoder_attention(*(torch.from_numpy(x).to(tt) for x in (q, k, v)),
+                               None if mask is None else torch.from_numpy(mask))
+    assert out.dtype == tt and out.shape == q.shape and out.is_contiguous()
+    return out.float().numpy(), np.array(ref, np.float32)
+
+
+def _hm_inputs(seed, b, t, h, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, t, h, hd)).astype(np.float32) for _ in range(3))
+
+
+# The cases of tests/test_encoder_attention.py: unaligned T and hd unmasked,
+# masked with ragged lengths (one row of a single valid key), bf16 I/O.
+@pytest.mark.parametrize("case", ["unmasked", "masked", "bf16"])
+def test_plain_hm_matches_pallas(case):
+    if case == "unmasked":
+        q, k, v = _hm_inputs(0, 2, 37, 4, 20)
+        out, ref = _run_both_hm(q, k, v, None, "float32")
+    elif case == "masked":
+        q, k, v = _hm_inputs(1, 3, 29, 2, 16)
+        mask = np.arange(29)[None, :] < np.array([29, 11, 1])[:, None]
+        out, ref = _run_both_hm(q, k, v, mask, "float32")
+    else:
+        q, k, v = _hm_inputs(2, 2, 33, 2, 24)
+        out, ref = _run_both_hm(q, k, v, None, "bfloat16")
+    np.testing.assert_allclose(out, ref, **(BF16 if case == "bf16" else F32))
+
+
+def test_plain_hm_row_without_valid_key_and_f32_weights():
+    """A row with no valid key is uniform; and K2 keeps the weights in
+    float32, so in float32 it equals K1 on the same values (in bf16 the two
+    differ by design: K1 rounds the weights)."""
+    b, t, h, hd = 2, 31, 2, 20
+    q, k, v = _hm_inputs(3, b, t, h, hd)
+    mask = np.arange(t)[None, :] < np.array([7, 0])[:, None]
+    out, ref = _run_both_hm(q, k, v, mask, "float32")
+    np.testing.assert_allclose(out, ref, **F32)
+    np.testing.assert_allclose(out[1], np.broadcast_to(v[1].mean(0), out[1].shape), **F32)
+    packed = ea.encoder_attention_packed(
+        torch.from_numpy(q.reshape(b, t, h * hd)),
+        torch.from_numpy(k.reshape(b, t, h * hd)).transpose(1, 2).contiguous(),
+        torch.from_numpy(v.reshape(b, t, h * hd)), torch.from_numpy(mask), h)
+    np.testing.assert_allclose(out, packed.numpy().reshape(b, t, h, hd), **F32)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "rank", "mask"])
+def test_hm_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q, k, v = (torch.from_numpy(x) for x in _hm_inputs(4, 2, 9, 2, 8))
+    mask = torch.ones(2, 9, dtype=torch.bool)
+    if bad == "shape":
+        k = k.transpose(1, 2)
+    elif bad == "dtype":
+        v = v.double()
+    elif bad == "rank":
+        q, k, v = (x.flatten(2) for x in (q, k, v))
+    else:
+        mask = mask[:, :8]
+    before = ea.encoder_attention.launches
+    with pytest.raises((ValueError, TypeError)):
+        ea.encoder_attention(q, k, v, mask)
+    assert ea.encoder_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hd", [(4, 384, 8, 52), (3, 415, 8, 52), (2, 97, 8, 36),
+                                      (4, 384, 4, 52)])
+def test_cuda_hm_kernel_matches_plain(cuda_device, b, t, h, hd, dtype):
+    """K2 against its plain version on the same card tensors, masked with
+    ragged lengths (one row with no valid key) and unmasked; the last shape
+    is one rank's share of a 4x2 mesh."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn((b, t, h, hd), generator=g).to(cuda_device, dtype) for _ in range(3))
+    lengths = torch.tensor([t] + [max(t // (i + 2), 1) for i in range(b - 2)] + [0])
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).to(cuda_device)
+    for m in (None, mask):
+        before = ea.encoder_attention.launches
+        out = ea.encoder_attention(q, k, v, m)
+        torch.cuda.synchronize()
+        assert ea.encoder_attention.launches == before + 1
+        ref = ea._encoder_attention_torch(q, k, v, m)
+        tol = F32 if dtype == torch.float32 else BF16_KERNEL
+        torch.testing.assert_close(out.float(), ref.float(), **tol)

@@ -5,8 +5,10 @@
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 the sources in the checkout, holds each kernel against its plain PyTorch
-version on the card, times it beside its bound and PyTorch's own call for
-the same function, drives the offline transcription path through
+version on the card (K1 and K2 also: a batch row alone gives the bits it
+gets in a batch, and their bf16 builds hold tensor-core and cp.async
+instructions, read with cuobjdump), times it beside its bound and PyTorch's
+own call for the same function, drives the offline transcription path through
 ``Transcriber(model="base")`` with random weights (and once with word
 timestamps), checks the card's forward, beam search and speculative
 decoding against the CPU's, and runs the bench's batched offline decodes of
@@ -30,6 +32,7 @@ import argparse
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -107,9 +110,11 @@ def phase_kernel_vs_plain(ea) -> float:
     worst = 0.0
     # Base at the bench's T (and T=415), Tiny's hd=36, and the shapes the
     # Transcriber gives it: one segment padded to its 2 s or 16 s bucket.
+    # Then the 64 s bucket (T=2,665, the longest the Transcriber gives) and
+    # Tiny's hd=36 at T=97.
     cases = [(16, 384, 8, 52, m) for m in (False, True)] + [
         (4, 415, 8, 52, True), (4, 384, 8, 36, True), (1, 83, 8, 52, True),
-        (1, 666, 8, 52, True)]
+        (1, 666, 8, 52, True), (1, 2665, 8, 52, True), (4, 97, 8, 36, True)]
     for b, t, h, hd, masked in cases:
         if not masked:
             lengths = None
@@ -189,12 +194,19 @@ def phase_hm_vs_plain(ea) -> float:
     """K2 against its plain version on the card; returns the largest error.
     Base at the bench's T (ragged lengths, the last row with no valid key;
     and unmasked), T=415, Tiny's hd=36 and one rank's share of a 4x2 mesh
-    (B/4 rows, H/2 heads)."""
+    (B/4 rows, H/2 heads); then the 64 s bucket at B=1 (T=2,665, a segment
+    shorter than its bucket) and Tiny's hd=36 at T=97."""
     worst = 0.0
     cases = [(16, 384, 8, 52, m) for m in (False, True)] + [
-        (4, 415, 8, 52, True), (4, 384, 8, 36, True), (4, 384, 4, 52, True)]
+        (4, 415, 8, 52, True), (4, 384, 8, 36, True), (4, 384, 4, 52, True),
+        (1, 2665, 8, 52, True), (4, 97, 8, 36, True)]
     for b, t, h, hd, masked in cases:
-        lengths = [max(t - i * (t // b), 1) for i in range(b - 1)] + [0] if masked else None
+        if not masked:
+            lengths = None
+        elif b == 1:
+            lengths = [t * 3 // 4]
+        else:
+            lengths = [max(t - i * (t // b), 1) for i in range(b - 1)] + [0]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask = hm_inputs(b, t, h, hd, dtype, lengths, seed=b + t + hd + 1)
             out = ea.encoder_attention(q, k, v, mask)
@@ -235,6 +247,94 @@ def phase_hm_times(ea) -> dict:
             f"{res['flops'] / 1e9:.1f} GFLOP with P.V as three bf16 passes = "
             f"{res['operations_ms']:.4f} ms)")
         out[label] = res
+    return out
+
+
+def phase_batch_independence(ea) -> dict:
+    """K1 and K2 on a B=16 batch (Base heads, T=384, ragged lengths down to
+    a row with no valid key), each row against the same row run alone, bit
+    for bit: a row's result may not depend on B or on where its blocks fall
+    in the grid (the sharded path's bit-identity checks rest on this)."""
+    b, t, h, hd = 16, 384, 8, 52
+    lengths = [max(t - 23 * i, 0) for i in range(b)]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kt, v, mask = attention_inputs(b, t, h, hd, dtype, lengths, seed=16)
+        k = kt.view(b, h, hd, t).permute(0, 3, 1, 2).contiguous()  # [B, T, H, hd]
+        qh, vh = q.view(b, t, h, hd), v.view(b, t, h, hd)
+        runs = {"K1": (lambda *x: ea.encoder_attention_packed(*x, h), (q, kt, v)),
+                "K2": (ea.encoder_attention, (qh, k, vh))}
+        for name, (fn, args) in runs.items():
+            whole = fn(*args, mask)
+            same = all(torch.equal(whole[i:i + 1], fn(*(x[i:i + 1].contiguous() for x in args),
+                                                      mask[i:i + 1].contiguous()))
+                       for i in range(b))
+            key = f"{name} {str(dtype)[6:]}"
+            out[key] = same
+            log(f"  {key} B={b} T={t}: every row alone == its row of the batch: "
+                f"{'bit-identical' if same else 'DIFFER'}")
+            if not same:
+                raise SystemExit(f"{name} gives a row other bits in a batch than alone")
+    return out
+
+
+def phase_f32_times(ea) -> dict:
+    """K1 in float32 (the FMA kernel, which the Transcriber's float32 model
+    runs) at its 16 s bucket, one segment: [1, 665, 8, 52] (T =
+    frames_for_samples(BASE, 16 s)), against its plain version and float32
+    SDPA, and its bound at the float32 rate outside the tensor cores."""
+    b, t, h, hd = 1, 665, 8, 52
+    dtype = torch.float32
+    q, kt, v, mask = attention_inputs(b, t, h, hd, dtype, [t * 3 // 4], seed=3)
+    kernel_ms = cuda_time_ms(lambda: ea.encoder_attention_packed(q, kt, v, mask, h), runs=21)
+    plain_ms = cuda_time_ms(lambda: ea._encoder_attention_packed_torch(q, kt, v, mask, h), runs=21)
+    qs, ks, vs = (q.view(b, t, h, hd).transpose(1, 2), kt.view(b, h, hd, t).transpose(2, 3),
+                  v.view(b, t, h, hd).transpose(1, 2))
+    add_mask = torch.zeros((b, 1, 1, t), device="cuda", dtype=dtype).masked_fill(
+        ~mask[:, None, None, :], -1e9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_time_ms(lambda: sdpa(qs, ks, vs, attn_mask=add_mask), runs=21)
+    res = {"shape": [b, t, h, hd], "dtype": "float32", "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           **attention_bound(b, t, h, hd, dtype, f32_weights=False)}
+    log(f"  K1 at [{b}, {t}, {h}, {hd}] float32: kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']} at 67 TFLOP/s: {res['flops'] / 1e9:.3f} GFLOP; bytes "
+        f"{res['bytes'] / 1e6:.2f} MB = {res['bytes_ms']:.4f} ms)")
+    return res
+
+
+def phase_sass(_build) -> dict:
+    """The SASS of the built encoder-attention library (cuobjdump -sass):
+    per kernel the count of tensor-core instructions (HMMA, HGMMA) and of
+    asynchronous global-to-shared copies (LDGSTS, cp.async).  Fails unless
+    every bf16 instantiation (encoder_attention_mma_kernel) has both."""
+    lib = _build.build(("encoder_attention",))["encoder_attention"]
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "LDGSTS": 0}
+        elif name is not None:
+            for op in counts[name]:
+                if f" {op}." in line or f" {op} " in line:
+                    counts[name][op] += 1
+    out = {}
+    for fn, c in sorted(counts.items()):
+        m = re.search(r"(mma|fma)_kernelILb([01])E(?:Li(\d)E)?", fn)
+        if m is None:
+            continue
+        label = f"{'K2' if m[2] == '1' else 'K1'} " + (
+            f"bf16 mma, head_dim {16 * int(m[3]) - 15}-{16 * int(m[3])}" if m[1] == "mma"
+            else "float32 fma")
+        out[label] = c
+        log(f"  {label}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, {c['LDGSTS']} LDGSTS")
+    mma = {k: c for k, c in out.items() if "bf16 mma" in k}
+    if not mma or any(c["HMMA"] + c["HGMMA"] == 0 or c["LDGSTS"] == 0 for c in mma.values()):
+        raise SystemExit("a bf16 attention kernel lacks tensor-core or cp.async instructions")
     return out
 
 
@@ -1008,12 +1108,18 @@ def main() -> int:
     max_err = phase_kernel_vs_plain(ea)
     log("[kernel vs plain] K2")
     hm_err = phase_hm_vs_plain(ea)
+    log("[kernel vs plain] K1, K2 batch independence")
+    batch_independence = phase_batch_independence(ea)
     log("[kernel vs plain] K3, K4")
     gather_err = phase_gather_vs_plain(bg)
+    log("[kernel SASS] K1, K2")
+    sass = phase_sass(_build)
     log("[kernel times] K1")
     times = phase_kernel_times(ea)
     log("[kernel times] K2")
     hm_times = phase_hm_times(ea)
+    log("[kernel times] K1 float32")
+    f32_times = phase_f32_times(ea)
     log("[kernel times] K3, K4")
     gather_times = phase_gather_times(bg)
 
@@ -1061,6 +1167,9 @@ def main() -> int:
         "ms": times["kernel_ms"], "kernel_ms": times["kernel_ms"],
         "plain_ms": times["plain_ms"], "library_ms": times["library_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+        "f32_shape": f32_times["shape"], "f32_ms": f32_times["kernel_ms"],
+        "f32_plain_ms": f32_times["plain_ms"], "f32_library_ms": f32_times["library_ms"],
+        "f32_bound_ms": f32_times["bound_ms"], "f32_bound_by": f32_times["bound_by"],
     }, {
         "name": "encoder_attention", "route": "cuda",
         "source": "moonshine_tpu_torch/csrc/encoder_attention.cu",
@@ -1083,7 +1192,9 @@ def main() -> int:
         gather_entry("gather_scale_rows", "moonshine_tpu/ops/beam_gather.py:76",
                      beam["launches"]["gather_scale_rows"], gather_err, k4)]
     record = {"card": card, "torch": torch.__version__, "kernels": kernels,
-              "kernel_times": times, "hm_times": hm_times, "gather_times": gather_times,
+              "kernel_times": times, "hm_times": hm_times, "f32_times": f32_times,
+              "batch_independence": batch_independence, "sass": sass,
+              "gather_times": gather_times,
               "main_path": main_path, "reference_check": ref, "word_timestamps": words,
               "beam_reference_check": beam_ref, "speculative_reference": spec_ref,
               "batched": batched, "beam": beam, "sharded": sharded,

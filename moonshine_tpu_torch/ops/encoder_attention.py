@@ -43,8 +43,36 @@ from ..parallel.mesh import MODEL_AXIS
 from . import _build
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 128  # the kernel gives each head column a thread of its 128
+MAX_HEAD_DIM = 128  # the float32 kernel gives each head column a thread of its 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_PER_BLOCK = 232_448  # shared memory one Hopper block may opt into
+_TILE_KEYS, _STAGES = 64, 3  # the bf16 kernel's ring: 3 buffers of 64-key tiles
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def max_frames(head_dim: int, dtype: torch.dtype) -> int:
+    """The longest T (frames) the kernels take at ``head_dim`` and ``dtype``:
+    each block keeps float32 logits rows over every key in shared memory.
+
+    float32 (the FMA kernel): 16 rows of T floats beside the q tile (16 x
+    hd) and one key tile (64 x hd, + 64 for K2's padded rows).  bf16 (the
+    tensor-core kernel): at least one warp's 16 rows, of T rounded up to 64
+    plus 8 floats, beside three ring buffers of 64-key tiles, each the largest
+    of K1's [kd][72], K2's [64][kd + 8] and the values' [64][vs] in bf16
+    (kd = hd rounded up to 16; vs = hd rounded up to 8, + 8 when that is an
+    even number of 16-byte words).  The same arithmetic as the layouts in
+    ``csrc/encoder_attention.cu``; both kernels are held to the smaller limit.
+    """
+    if dtype == torch.float32:
+        return (_SMEM_PER_BLOCK // 4 - head_dim * (16 + 64) - 64) // 16
+    kd, nv = _round_up(head_dim, 16), _round_up(head_dim, 8)
+    vs = nv if (nv // 8) % 2 else nv + 8
+    ring = max(kd * (_TILE_KEYS + 8), _TILE_KEYS * (kd + 8), _TILE_KEYS * vs) * 2
+    rows_floats = (_SMEM_PER_BLOCK - _STAGES * ring) // (16 * 4)  # one warp's logits row stride
+    return (rows_floats - 8) // _TILE_KEYS * _TILE_KEYS
 
 
 def _encoder_attention_packed_torch(
@@ -103,6 +131,16 @@ def _check_io(tensors: dict, frame_mask, b: int, t: int) -> None:
             raise ValueError("frame_mask must lie on the device of q")
 
 
+def _check_frames(t: int, hd: int, dtype: torch.dtype) -> None:
+    """Refuse, on every device, a T or head_dim the kernel does not take."""
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes head_dim <= {MAX_HEAD_DIM}; got {hd}")
+    if t > max_frames(hd, dtype):
+        raise ValueError(
+            f"T={t} frames exceeds the kernel's longest, {max_frames(hd, dtype)} at "
+            f"head_dim={hd} in {dtype} (its logits rows live in shared memory)")
+
+
 def _check(q, kt, v, frame_mask, heads) -> None:
     if q.dim() != 3 or kt.dim() != 3 or v.dim() != 3:
         raise ValueError("q, kt and v must be [B, T, D], [B, D, T] and [B, T, D]")
@@ -114,6 +152,7 @@ def _check(q, kt, v, frame_mask, heads) -> None:
             f"shape mismatch: q {tuple(q.shape)}, kt {tuple(kt.shape)} "
             f"(want {(b, d, t)}), v {tuple(v.shape)}")
     _check_io({"q": q, "kt": kt, "v": v}, frame_mask, b, t)
+    _check_frames(t, d // heads, q.dtype)
 
 
 def _check_hm(q, k, v, frame_mask) -> None:
@@ -123,6 +162,7 @@ def _check_hm(q, k, v, frame_mask) -> None:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     _check_io({"q": q, "k": k, "v": v}, frame_mask, q.shape[0], q.shape[1])
+    _check_frames(q.shape[1], q.shape[3], q.dtype)
 
 
 @functools.cache
@@ -143,10 +183,8 @@ def _launch(name: str, q, k, v, frame_mask, b: int, t: int, heads: int, hd: int)
     for arg, x in (("q", q), ("k", k), ("v", v), ("frame_mask", frame_mask)):
         if x is not None and not x.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
-    if hd > MAX_HEAD_DIM or b > 65535 or heads > 65535:
-        raise ValueError(
-            f"kernel takes head_dim <= {MAX_HEAD_DIM} and B, heads <= 65535; "
-            f"got head_dim={hd}, B={b}, heads={heads}")
+    if b > 65535 or heads > 65535:
+        raise ValueError(f"kernel takes B, heads <= 65535; got B={b}, heads={heads}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -157,8 +195,7 @@ def _launch(name: str, q, k, v, frame_mask, b: int, t: int, heads: int, hd: int)
     if rc != 0:
         raise RuntimeError(
             f"{name} launch failed with CUDA error {rc} (B={b}, T={t}, heads={heads}, "
-            f"head_dim={hd}, {q.dtype}); a T whose logits rows exceed the block's "
-            "shared memory is refused")
+            f"head_dim={hd}, {q.dtype})")
     return out
 
 

@@ -34,7 +34,8 @@ from moonshine_tpu_torch.core.config import BASE, TINY  # noqa: E402
 from moonshine_tpu_torch.core.device import resolve_device  # noqa: E402
 
 
-OWN_KERNELS = ("encoder_attention_kernel", "gather_rows")  # csrc/*.cu
+OWN_KERNELS = ("encoder_attention_mma_kernel", "encoder_attention_fma_kernel",
+               "gather_rows")  # csrc/*.cu
 
 
 def device_us(prof) -> tuple[float, list]:

@@ -227,3 +227,116 @@ def test_cuda_hm_kernel_matches_plain(cuda_device, b, t, h, hd, dtype):
         ref = ea._encoder_attention_torch(q, k, v, m)
         tol = F32 if dtype == torch.float32 else BF16_KERNEL
         torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+# -- The longest T, and the kernels at the shapes of the port's paths -------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_frames_covers_the_longest_bucket(dtype):
+    """The Transcriber's largest bucket (64 s) encodes to T frames within
+    the kernels' limit, for Base and Tiny heads, in both I/O dtypes."""
+    from moonshine_tpu_torch.core.config import BASE, TINY
+
+    for cfg in (BASE, TINY):
+        t = cfg.frames_for_samples(64 * 16000)
+        assert t == 2665
+        assert t <= ea.max_frames(cfg.head_dim, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["packed", "head_major"])
+def test_wrapper_refuses_t_beyond_max_frames(kernel, dtype):
+    """One frame past the limit raises ValueError before any launch, on
+    every device; the limit itself is taken."""
+    hd, h = 52, 1
+    limit = ea.max_frames(hd, dtype)
+    counter = ea.encoder_attention_packed if kernel == "packed" else ea.encoder_attention
+    before = counter.launches
+    for t in (limit, limit + 1):
+        q, v = (torch.zeros(1, t, h * hd, dtype=dtype) for _ in range(2))
+        if kernel == "packed":
+            call = lambda: ea.encoder_attention_packed(q, q.transpose(1, 2).contiguous(), v, None, h)
+        else:
+            call = lambda: ea.encoder_attention(*(x.view(1, t, h, hd) for x in (q, q, v)), None)
+        if t > limit:
+            with pytest.raises(ValueError, match="exceeds"):
+                call()
+        else:
+            assert call().shape[1] == t
+    assert counter.launches == before
+
+
+def _card_inputs(kernel, b, t, h, hd, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    if kernel == "packed":
+        shapes = ((b, t, h * hd), (b, h * hd, t), (b, t, h * hd))
+    else:
+        shapes = ((b, t, h, hd),) * 3
+    return tuple(torch.randn(s, generator=g).to("cuda", dtype) for s in shapes)
+
+
+def _card_call(kernel, q, k, v, mask, h):
+    if kernel == "packed":
+        return ea.encoder_attention_packed(q, k, v, mask, h)
+    return ea.encoder_attention(q, k, v, mask)
+
+
+def _card_plain(kernel, q, k, v, mask, h):
+    if kernel == "packed":
+        return ea._encoder_attention_packed_torch(q, k, v, mask, h)
+    return ea._encoder_attention_torch(q, k, v, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["packed", "head_major"])
+@pytest.mark.parametrize("b,t,h,hd", [(1, 83, 8, 52), (2, 415, 8, 52), (1, 665, 8, 52),
+                                      (1, 2665, 8, 52), (2, 415, 8, 36)])
+def test_cuda_kernels_at_path_shapes(cuda_device, kernel, b, t, h, hd, dtype):
+    """K1 and K2 against their plain versions at odd T (kt rows 2-byte
+    aligned), the Transcriber's buckets at B=1 (a segment shorter than its
+    bucket) up to the 64 s one, and Tiny's hd=36; unmasked and masked."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _card_inputs(kernel, b, t, h, hd, dtype, seed=t + hd)
+    lengths = torch.tensor([t * 3 // 4] + [t // (i + 2) for i in range(b - 1)])
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).to(cuda_device)
+    for m in (None, mask):
+        out = _card_call(kernel, q, k, v, m, h)
+        torch.cuda.synchronize()
+        ref = _card_plain(kernel, q, k, v, m, h)
+        tol = F32 if dtype == torch.float32 else BF16_KERNEL
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["packed", "head_major"])
+def test_cuda_row_without_valid_key(cuda_device, kernel, dtype):
+    """A batch row with no valid key gets uniform weights on the card too:
+    finite, and equal to its plain version."""
+    b, t, h, hd = 2, 384, 8, 52
+    q, k, v = _card_inputs(kernel, b, t, h, hd, dtype, seed=5)
+    mask = (torch.arange(t)[None, :] < torch.tensor([t, 0])[:, None]).to(cuda_device)
+    out = _card_call(kernel, q, k, v, mask, h)
+    torch.cuda.synchronize()
+    assert bool(out.isfinite().all())
+    ref = _card_plain(kernel, q, k, v, mask, h)
+    tol = F32 if dtype == torch.float32 else BF16_KERNEL
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["packed", "head_major"])
+def test_cuda_batch_independence(cuda_device, kernel, dtype):
+    """Each batch row of a B=16 call equals that row run alone, bit for bit:
+    a row's arithmetic does not depend on B or its place in the grid."""
+    b, t, h, hd = 16, 384, 8, 52
+    q, k, v = _card_inputs(kernel, b, t, h, hd, dtype, seed=6)
+    lengths = torch.tensor([max(t - 23 * i, 0) for i in range(b)])
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).to(cuda_device)
+    out = _card_call(kernel, q, k, v, mask, h)
+    for i in range(b):
+        alone = _card_call(kernel, *(x[i:i + 1].contiguous() for x in (q, k, v)),
+                           mask[i:i + 1].contiguous(), h)
+        assert torch.equal(out[i:i + 1], alone), f"row {i} differs when run alone"

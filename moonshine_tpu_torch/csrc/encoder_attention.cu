@@ -68,14 +68,60 @@
 //   12.8, sm_90a), hd 49-64: 117 registers for K1, 119 for K2 (96-128 over
 //   all head_dim classes), no spills.
 //
-// float32: the FMA kernel (`encoder_attention_fma_kernel`), the exact
-//   float32 route: no TF32, so float32 I/O keeps full float32 products.  One
-//   block of 128 threads takes 16 query rows of one (b, h), keeps their
-//   logits rows in shared memory and runs both products on the FMA units
-//   with keys and values staged synchronously in tiles of 64 (K2's key tile
-//   key by key with rows of hd + 1 floats, so its reads stay coalesced and
-//   bank-distinct).  Longest T: (58112 - 80*hd - 64) / 16, 3,368 at hd=52.
-//   It is issue-bound, far above its bound (67 TFLOP/s of float32 FMA).
+// float32: the float32-exact tensor-core kernel (`encoder_attention_f32_kernel`).
+//   No TF32: float32 I/O keeps float32 products.  Each float32 operand x is
+//   split into three bf16 parts, hi = bf16(x), mid = bf16(x - hi), lo =
+//   bf16(x - hi - mid) (the subtractions are exact), and a product a.b runs
+//   as six mma.sync m16n8k16 bf16 passes into one float32 accumulator,
+//   smallest terms first: lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi (see
+//   mma_f32x6); each term left out is below about 2^-24 |a.b|.  Both
+//   products (Q.K^T on q and k, P.V on the float32 weights and v) take this
+//   form: 989/6 = 165 TFLOP/s of float32 work, against the FMA units' 67.
+//   The tensor cores' float32 accumulation is not IEEE round-to-nearest, so
+//   P.V sums each 64-key tile in accumulators of its own and adds the tiles
+//   in IEEE float32: the tensor cores then sum over 64 keys, not over all T
+//   (on an H100, at T=2,665, this cut K2's largest error against the plain
+//   version from 3.1e-6 to 7.6e-7).
+//   What bounds it.  At the main path's 16 s bucket, one segment ([1, 665, 8,
+//   52]), the products are 0.736 GFLOP: 0.0045 ms at 165 TFLOP/s, above the
+//   4.4 MB of q, k, v and out (0.0013 ms); at the 64 s bucket (T=2,665)
+//   11.82 GFLOP, 0.0717 ms.  The kernel does more: Q.K^T twice (below), hd
+//   padded to the mma tiles, and two exps per logit.  What it spends its
+//   time on is latency: one segment is 42 (T=665) to 167 (T=2,665) row
+//   tiles per head, so a block holds one of few warps per SM sub-partition,
+//   and each 64-key step of a block issues its cp.async copies, splits a
+//   tile into parts and runs its products one after another (clock64 stamps
+//   on an H100: about a fifth each for the copies and the split, three
+//   fifths for the products).  chip_smoke.py times it beside the plain
+//   version and float32 SDPA (PERF.md).
+//   What the design does.  The logits are not stored: float32 rows of 16
+//   queries take 64 bytes per key, which at T=2,665 would leave one warp per
+//   SM.  Each warp makes two passes over the keys instead.  The first takes
+//   Q.K^T tile by tile and keeps, for rows g and g + 8 over this lane's
+//   keys, the running max and the sum of exp(l - max), rescaled when the max
+//   grows; the four lanes of a row then combine theirs (an exchange whose
+//   sums commute, so all four hold the same bits).  So the row's max and sum
+//   are taken over every key before any weight is formed.  The second pass
+//   computes Q.K^T again, bit for bit, forms each weight exp(l - max) / sum,
+//   correctly rounded (divide), in the accumulator fragments, which are P.V's
+//   A fragments, and runs P.V.  That costs 1.5x the products and keeps shared
+//   memory independent of T.  One ring of kStages buffers of 64-key float32
+//   tiles, filled by cp.async three entries ahead (entries: every key tile,
+//   then each key tile again and its value tile); each entry is split once
+//   per block, one step ahead of its use, into hi, mid and lo bf16 tiles in
+//   the bf16 kernel's padded layouts (two sets), which ldmatrix reads as in
+//   the bf16 kernel, so a warp spends no instructions splitting K or V.  One
+//   block barrier per step.  Q's parts are read from device memory once and
+//   stay in registers.  The key tiles' padded dims hd..kd are zeros written
+//   once into the part sets (K1's q columns past hd, the next head's values,
+//   are never read).  The key mask becomes one bit per key of the tile as the
+//   tile is split.  Shared memory: 104,448 B at hd 49-64.  Blocks of 8 warps
+//   (128 rows): measured on an H100, blocks of 2 or 4 warps spread one
+//   segment over more SMs but lost (each block repeats the copies and the
+//   splits).  A row's arithmetic does not depend on B, H or the row's place
+//   in the grid.  Longest T: none from shared memory; the launch takes the
+//   bytes of a kt row, 4T, as an int (copy_width), so T <= 2^29 - 64 (the
+//   wrapper's max_frames).
 //
 // Limits: head_dim <= 128; B and H <= 65535.
 
@@ -87,161 +133,14 @@ namespace {
 
 constexpr float kNegInf = -1e9f;
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
 // ---------------------------------------------------------------------------
-// float32 route: FMA units, one block of 128 threads per 16 query rows
-// ---------------------------------------------------------------------------
-
-constexpr int kFmaThreads = 128;
-constexpr int kFmaRows = 16;  // query rows per block
-constexpr int kFmaKeys = 64;  // keys (or values) per staged tile
-constexpr int kFmaRowGroups = kFmaThreads / kFmaKeys;
-constexpr int kFmaRowsPerThread = kFmaRows / kFmaRowGroups;  // 8
-
-static_assert(kFmaRowsPerThread == 8, "the logits loop reads 8 rows as two float4");
-
-// Floats of the key/value tile: K1's keys [head_dim][kFmaKeys] and both
-// kernels' values [kFmaKeys][head_dim] fit head_dim * kFmaKeys; K2's keys
-// [kFmaKeys][head_dim + 1] need one more column.
-__host__ __device__ __forceinline__ int fma_tile_floats(int head_dim, bool head_major) {
-  return head_dim * kFmaKeys + (head_major ? kFmaKeys : 0);
-}
-
-size_t fma_shared_bytes(int seq, int head_dim, bool head_major) {
-  return sizeof(float) * (static_cast<size_t>(head_dim) * kFmaRows +
-                          static_cast<size_t>(fma_tile_floats(head_dim, head_major)) +
-                          static_cast<size_t>(kFmaRows) * seq);
-}
-
-template <bool kHeadMajor>
-__global__ void __launch_bounds__(kFmaThreads)
-encoder_attention_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                             float* __restrict__ out, int seq, int heads, int head_dim,
-                             float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                       // [head_dim][kFmaRows]: q tile, transposed
-  float* tile = qs + head_dim * kFmaRows;  // keys (see fma_tile_floats) / [kFmaKeys][head_dim] values
-  float* w = tile + fma_tile_floats(head_dim, kHeadMajor);  // [kFmaRows][seq]: logits, then weights
-
-  const int dim = heads * head_dim;
-  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kFmaRows;
-  const int tid = threadIdx.x;
-  // q[b, t, h*hd + d], v[b, t, h*hd + d] and (K2) k[b, t, h, d] sit at
-  // base_qv + t*dim + d; (K1) kt[b, h*hd + d, t] at base_kt + d*seq + t.
-  const size_t base_qv = static_cast<size_t>(b) * seq * dim + static_cast<size_t>(h) * head_dim;
-  const size_t base_kt = static_cast<size_t>(b) * dim * seq + static_cast<size_t>(h) * head_dim * seq;
-
-  for (int i = tid; i < kFmaRows * head_dim; i += kFmaThreads) {
-    const int r = i / head_dim, d = i % head_dim, t = row0 + r;
-    qs[d * kFmaRows + r] = t < seq ? q[base_qv + static_cast<size_t>(t) * dim + d] : 0.f;
-  }
-
-  // Logits: each thread owns key column j of the tile and 8 query rows.
-  const int j = tid % kFmaKeys, rg = tid / kFmaKeys;
-  for (int k0 = 0; k0 < seq; k0 += kFmaKeys) {
-    __syncthreads();  // the previous tile is consumed; qs is written
-    if constexpr (kHeadMajor) {
-      for (int i = tid; i < kFmaKeys * head_dim; i += kFmaThreads) {
-        const int jj = i / head_dim, d = i % head_dim, t = k0 + jj;
-        tile[jj * (head_dim + 1) + d] = t < seq ? k[base_qv + static_cast<size_t>(t) * dim + d] : 0.f;
-      }
-    } else {
-      for (int i = tid; i < head_dim * kFmaKeys; i += kFmaThreads) {
-        const int d = i / kFmaKeys, t = k0 + i % kFmaKeys;
-        tile[i] = t < seq ? k[base_kt + static_cast<size_t>(d) * seq + t] : 0.f;
-      }
-    }
-    __syncthreads();
-    float acc[kFmaRowsPerThread] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < head_dim; ++d) {
-      const float kv = kHeadMajor ? tile[j * (head_dim + 1) + d] : tile[d * kFmaKeys + j];
-      const float4* qrow = reinterpret_cast<const float4*>(qs + d * kFmaRows + rg * kFmaRowsPerThread);
-      const float4 qa = qrow[0], qb = qrow[1];
-      acc[0] = fmaf(qa.x, kv, acc[0]);
-      acc[1] = fmaf(qa.y, kv, acc[1]);
-      acc[2] = fmaf(qa.z, kv, acc[2]);
-      acc[3] = fmaf(qa.w, kv, acc[3]);
-      acc[4] = fmaf(qb.x, kv, acc[4]);
-      acc[5] = fmaf(qb.y, kv, acc[5]);
-      acc[6] = fmaf(qb.z, kv, acc[6]);
-      acc[7] = fmaf(qb.w, kv, acc[7]);
-    }
-    const int t = k0 + j;
-    if (t < seq) {
-      const bool valid = mask == nullptr || mask[static_cast<size_t>(b) * seq + t] != 0;
-#pragma unroll
-      for (int r = 0; r < kFmaRowsPerThread; ++r) {
-        w[(rg * kFmaRowsPerThread + r) * seq + t] = valid ? acc[r] * scale : kNegInf;
-      }
-    }
-  }
-  __syncthreads();
-
-  // Exact softmax, one warp per row: max, then exp and sum, then the
-  // weights (float32 I/O: K1's rounding to the I/O dtype is the identity).
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < kFmaRows; r += kFmaThreads / 32) {
-    float* row = w + r * seq;
-    float m = __int_as_float(0xff800000);  // -inf
-    for (int t = lane; t < seq; t += 32) m = fmaxf(m, row[t]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int t = lane; t < seq; t += 32) {
-      const float p = expf(row[t] - m);
-      row[t] = p;
-      s += p;
-    }
-    s = warp_sum(s);
-    for (int t = lane; t < seq; t += 32) row[t] = row[t] / s;
-  }
-
-  // Output: each thread owns head column dcol for rows rg2, rg2 + groups, ...
-  const int groups = kFmaThreads / head_dim;  // >= 1 since head_dim <= 128
-  const int dcol = tid % head_dim, rg2 = tid / head_dim;
-  float o[kFmaRows];
-#pragma unroll
-  for (int i = 0; i < kFmaRows; ++i) o[i] = 0.f;
-  for (int k0 = 0; k0 < seq; k0 += kFmaKeys) {
-    __syncthreads();  // softmax done / the previous tile is consumed
-    for (int i = tid; i < kFmaKeys * head_dim; i += kFmaThreads) {
-      const int t = k0 + i / head_dim, d = i % head_dim;
-      tile[i] = t < seq ? v[base_qv + static_cast<size_t>(t) * dim + d] : 0.f;
-    }
-    __syncthreads();
-    if (rg2 < groups) {
-      const int nk = min(kFmaKeys, seq - k0);
-      for (int jj = 0; jj < nk; ++jj) {
-        const float vv = tile[jj * head_dim + dcol];
-        const float* wcol = w + k0 + jj;
-#pragma unroll
-        for (int i = 0; i < kFmaRows; ++i) {
-          const int r = rg2 + i * groups;
-          if (r < kFmaRows) o[i] = fmaf(wcol[r * seq], vv, o[i]);
-        }
-      }
-    }
-  }
-  if (rg2 < groups) {
-#pragma unroll
-    for (int i = 0; i < kFmaRows; ++i) {
-      const int r = rg2 + i * groups, t = row0 + r;
-      if (r < kFmaRows && t < seq) out[base_qv + static_cast<size_t>(t) * dim + dcol] = o[i];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // bf16 route: tensor cores (mma.sync m16n8k16), cp.async ring of K/V tiles
+// (its tile copies, mma and divide serve the float32 route too)
 // ---------------------------------------------------------------------------
 
 constexpr int kTileKeys = 64;         // keys (or values) per ring tile
@@ -251,11 +150,14 @@ constexpr int kStages = 3;            // ring buffers: kStages - 1 tiles in flig
 static_assert(kStages >= 2, "a ring");
 constexpr int kWarpRows = 16;         // query rows per warp: one m16 tile
 constexpr int kMaxWarps = 8;
+constexpr int kMaxHeadDim = 128;      // KS = ceil(head_dim / 16) <= 8
 constexpr int kSmemPerBlock = 232448;  // Hopper: the opt-in limit of one block
 constexpr int kSmemPerSM = 233472;     // Hopper: 228 KB per SM
 constexpr int kSmemReserved = 1024;    // per resident block
 
-__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ __forceinline__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
 __host__ __device__ __forceinline__ int max3(int a, int b, int c) {
   return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
@@ -359,8 +261,8 @@ __device__ __forceinline__ RowWalk make_walk(int row_bytes, int width) {
 // Rows t0 .. t0 + nrows - 1 of one head of a time-major operand (q, v, K2's
 // k: element (t, d) at base + t*dim + d), head_dim values each, into a tile
 // of row stride `stride`; rows at or past seq become zeros.
-__device__ __forceinline__ void load_rows(__nv_bfloat16* tile, int stride,
-                                          const __nv_bfloat16* src, size_t base, int dim,
+template <typename E>
+__device__ __forceinline__ void load_rows(E* tile, int stride, const E* src, size_t base, int dim,
                                           int t0, int nrows, int seq, const RowWalk& w) {
   for (int r = w.r0, c = w.c0; r < nrows;) {
     const int t = t0 + r;
@@ -379,15 +281,18 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* tile, int stride,
 
 // Keys k0 .. k0 + kTileKeys - 1 of K1's dim-major kt (element (d, t) at
 // base + d*seq + t) into a tile [head_dim][stride]; keys at or past seq
-// become zeros.  width divides 2*seq, so a piece is all inside or all out.
-__device__ __forceinline__ void load_kt(__nv_bfloat16* tile, int stride, const __nv_bfloat16* kt,
-                                        size_t base, int k0, int seq, int head_dim, int width) {
-  const int per_row = kTileKeys * 2 / width, keys = width / 2;  // powers of two
+// become zeros.  width divides seq * sizeof(E), so a piece is all inside or
+// all out.
+template <typename E>
+__device__ __forceinline__ void load_kt(E* tile, int stride, const E* kt, size_t base, int k0,
+                                        int seq, int head_dim, int width) {
+  constexpr int kSize = sizeof(E);
+  const int per_row = kTileKeys * kSize / width, keys = width / kSize;  // powers of two
   const int shift = __ffs(per_row) - 1;
   for (int i = threadIdx.x; i < head_dim * per_row; i += blockDim.x) {
     const int d = i >> shift, c = i & (per_row - 1), t = k0 + c * keys;
     const bool valid = t < seq;
-    const __nv_bfloat16* from = kt + base + static_cast<size_t>(d) * seq + (valid ? t : 0);
+    const E* from = kt + base + static_cast<size_t>(d) * seq + (valid ? t : 0);
     copy_piece(reinterpret_cast<char*>(tile + d * stride) + c * width, from, width, valid);
   }
 }
@@ -462,7 +367,7 @@ encoder_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                              const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
                              int seq, int heads, int head_dim, float scale, int qv_width,
                              int kt_width) {
-  // (extern shared arrays share one name space: the FMA kernel's is `smem`)
+  // (extern shared arrays share one name space: the float32 kernel's is `f32_smem`)
   extern __shared__ __align__(16) unsigned char mma_smem[];
   unsigned char* smem = mma_smem;
   const int warps = blockDim.x / 32;
@@ -691,6 +596,421 @@ encoder_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// float32 route: float32-exact products on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Group = 4;  // n8 tiles whose six mma passes interleave
+
+// Shared memory of the float32 kernel: kStages ring buffers of float32
+// tiles as cp.async lands them (K1's keys [kd][kTileKeys], K2's
+// [kTileKeys][kd], the values [kTileKeys][nv]), and two sets of three bf16
+// part tiles (hi, mid, lo) in the bf16 kernel's padded layouts (make_layout:
+// [kd][kts], [kTileKeys][ks], [kTileKeys][vs]), which ldmatrix reads.
+// Nothing depends on T.
+struct F32Layout {
+  Layout p;    // strides of the part tiles (p.ring: bytes of one part tile)
+  int ring;    // bytes of one float32 ring buffer
+  int parts;   // byte offset of the part tiles
+  int total;   // bytes of the block
+};
+
+__host__ __device__ __forceinline__ F32Layout make_f32_layout(int head_dim) {
+  F32Layout L;
+  L.p = make_layout(0, head_dim, 1);
+  L.ring = 4 * kTileKeys * L.p.kd;  // kd >= nv
+  L.parts = kStages * L.ring;
+  L.total = L.parts + 2 * 3 * L.p.ring;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Two neighbouring float32 values as the three bf16 parts of each, packed
+// (the first value in the low half): p[0] = hi = bf16(x), p[1] = mid =
+// bf16(x - hi), p[2] = lo = bf16(x - hi - mid).  Both subtractions are
+// exact, so hi + mid + lo is x to within about 2^-27 |x|.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t p[3]) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(hi);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(mid);
+  p[0] = bf162_bits(hi);
+  p[1] = bf162_bits(mid);
+  p[2] = bf162_bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+}
+
+// c[n] += a . b[n] for the first `count` of kF32Group m16n8k16 tiles, to
+// float32 accuracy: a's A fragment registers [reg][part] and each b[n]'s
+// two B registers [part][reg], in three parts (split3), as six bf16 passes
+// into one float32 accumulator per tile, smallest terms first: lo.hi,
+// hi.lo, mid.mid, mid.hi, hi.mid, hi.hi.  The three terms left out (lo.lo,
+// lo.mid, mid.lo) are each below about 2^-24 |a.b|.  Each pass runs over
+// all the tiles before the next, so no mma waits on the one just issued.
+__device__ __forceinline__ void mma_f32x6(float (*c)[4], const uint32_t a[4][3],
+                                          const uint32_t (*b)[3][2], int count) {
+  auto pass = [&](int pa, int pb) {  // part of a, part of b: 0 hi, 1 mid, 2 lo
+    const uint32_t ap[4] = {a[0][pa], a[1][pa], a[2][pa], a[3][pa]};
+#pragma unroll
+    for (int n = 0; n < kF32Group; ++n) {
+      if (n < count) mma_bf16(c[n], ap, b[n][pb][0], b[n][pb][1]);
+    }
+  };
+  pass(2, 0);
+  pass(0, 2);
+  pass(1, 1);
+  pass(1, 0);
+  pass(0, 1);
+  pass(0, 0);
+}
+
+// (m, s) of rows g or g + 8 from this lane and from lane ^ mask combined:
+// the larger max, and both sums rescaled to it.  The two lanes add the same
+// two terms, so both hold the same bits; a lane that saw no key (max -inf,
+// sum 0) adds 0.
+__device__ __forceinline__ void combine_stats(float& m, float& s, int mask) {
+  const float mo = __shfl_xor_sync(0xffffffffu, m, mask);
+  const float so = __shfl_xor_sync(0xffffffffu, s, mask);
+  const float mm = fmaxf(m, mo);
+  s = (m == mm ? s : s * expf(m - mm)) + (mo == mm ? so : so * expf(mo - mm));
+  m = mm;
+}
+
+// The pairs of a float32 tile (rows of `stride` floats, `w.per_row` pairs
+// each, as walked by w: make_walk with 8-byte pieces) split into three bf16
+// part tiles (rows of `pstride`, `part` elements apart); a value at column
+// `cols` or past becomes 0.  Four pairs at a time, loads first.
+__device__ __forceinline__ void split_tile(const float* src, int stride, __nv_bfloat16* dst,
+                                           int pstride, int part, int rows, int cols,
+                                           const RowWalk& w) {
+  for (int r = w.r0, c = w.c0; r < rows;) {
+    int at[4];
+    float2 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      at[u] = -1;
+      if (r < rows) {
+        at[u] = r * pstride + 2 * c;
+        x[u] = *reinterpret_cast<const float2*>(src + r * stride + 2 * c);
+        if (2 * c + 1 >= cols) x[u].y = 0.f;
+      }
+      r += w.dr;
+      c += w.dc;
+      if (c >= w.per_row) {
+        c -= w.per_row;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (at[u] < 0) continue;
+      uint32_t p[3];
+      split3(x[u].x, x[u].y, p);
+      uint32_t* to = reinterpret_cast<uint32_t*>(dst + at[u]);
+      to[0] = p[0];
+      to[part / 2] = p[1];
+      to[part] = p[2];
+    }
+  }
+}
+
+// KS = ceil(head_dim / 16): the k16 steps of Q.K^T; P.V has nv/8 <= 2*KS
+// n8 tiles.  v (and K2's k) are copied in qv_width-byte pieces, K1's kt in
+// kt_width-byte pieces; q is read straight into registers.
+template <bool kHeadMajor, int KS>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+encoder_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                             float* __restrict__ out, int seq, int heads, int head_dim,
+                             float scale, int qv_width, int kt_width) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  __shared__ uint32_t keep_bits[2][kTileKeys / 32];  // per part set: key kept by the mask
+  const F32Layout L = make_f32_layout(head_dim);
+  const Layout& P = L.p;
+  const int part = P.ring / 2;  // elements from one part tile to the next
+  auto ring = [&](int i) { return reinterpret_cast<float*>(f32_smem + (i % kStages) * L.ring); };
+  auto parts = [&](int i) {  // the hi tile of part set i % 2; mid at + part, lo at + 2 * part
+    return reinterpret_cast<__nv_bfloat16*>(f32_smem + L.parts + (i & 1) * 3 * P.ring);
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qd = lane & 3;  // fragment row and column pair of this lane
+  const int rows = (blockDim.x >> 5) * kWarpRows;
+  const int dim = heads * head_dim;
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * rows;
+  const size_t base_qv = static_cast<size_t>(b) * seq * dim + static_cast<size_t>(h) * head_dim;
+  const size_t base_kt = (static_cast<size_t>(b) * dim + static_cast<size_t>(h) * head_dim) * seq;
+  const int ntiles = (seq + kTileKeys - 1) / kTileKeys;
+  const int nv_tiles = P.nv / 8;
+  const uint8_t* mrow = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * seq;
+
+  // The entries of one ring: 0 .. ntiles - 1 are the key tiles of the
+  // statistics pass; ntiles + 2j is key tile j again and ntiles + 2j + 1
+  // value tile j, for the output pass.  Entry i lands (cp.async, one group
+  // each, past the last an empty one) in ring(i), three entries ahead; it is
+  // split into part set i % 2 one step ahead of its use.  So step i reads
+  // part set i % 2 while entry i + 1 is split and entries i + 2, i + 3 are
+  // in flight, with one block barrier per step: it certifies that entry i +
+  // 1 has landed, that part set i % 2 is written, and that every warp is
+  // done with part set (i + 1) % 2 and ring(i).
+  auto is_values = [&](int i) { return i >= ntiles && ((i - ntiles) & 1); };
+  auto tile_of = [&](int i) { return i < ntiles ? i : (i - ntiles) >> 1; };
+  const RowWalk copy_walk = make_walk(head_dim * 4, qv_width);  // v and K2's k rows
+  auto load_entry = [&](int i) {
+    if (i < 3 * ntiles) {
+      float* tile = ring(i);
+      const int t0 = tile_of(i) * kTileKeys;
+      if (is_values(i)) {
+        load_rows(tile, P.nv, v, base_qv, dim, t0, kTileKeys, seq, copy_walk);
+      } else if constexpr (kHeadMajor) {  // [key][kd]
+        load_rows(tile, P.kd, k, base_qv, dim, t0, kTileKeys, seq, copy_walk);
+      } else {  // [kd][key]
+        load_kt(tile, kTileKeys, k, base_kt, t0, seq, head_dim, kt_width);
+      }
+    }
+    cp_async_commit();
+  };
+  const int hd2 = round_up(head_dim, 2);
+  const RowWalk row_walk = make_walk(hd2 * 4, 8);  // K2's keys and the values: pairs of dims
+  const RowWalk kt_walk = make_walk(kTileKeys * 4, 8);  // K1's keys: pairs of keys
+  auto split_entry = [&](int i) {
+    if (i >= 3 * ntiles) return;
+    const float* src = ring(i);
+    __nv_bfloat16* dst = parts(i);
+    if (is_values(i)) {
+      split_tile(src, P.nv, dst, P.vs, part, kTileKeys, head_dim, row_walk);
+      return;
+    }
+    if constexpr (kHeadMajor) {
+      split_tile(src, P.kd, dst, P.ks, part, kTileKeys, head_dim, row_walk);
+    } else {
+      split_tile(src, kTileKeys, dst, P.kts, part, head_dim, kTileKeys, kt_walk);
+    }
+    const int t0 = tile_of(i) * kTileKeys;
+    for (int k0 = warp * 32; k0 < kTileKeys; k0 += blockDim.x) {  // warp-uniform
+      const int t = t0 + k0 + lane;
+      const bool kept = t < seq && (mrow == nullptr || mrow[t] != 0);
+      const uint32_t bits = __ballot_sync(0xffffffffu, kept);
+      if (lane == 0) keep_bits[i & 1][k0 / 32] = bits;
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) load_entry(i);
+  // Zeros in both part sets: the key tiles' dims hd..kd are never written
+  // after this (the value tiles, in the output pass, take the part set that
+  // its key tiles do not).
+  for (int i = threadIdx.x; i < 2 * 3 * P.ring / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(f32_smem + L.parts)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // This warp's Q rows as A fragments in three parts each, for both passes
+  // (zeros past seq and past hd), read while the first tiles land.
+  const int t0 = row0 + warp * kWarpRows + g, t1 = t0 + 8;
+  auto qval = [&](int t, int c) {
+    return t < seq && c < head_dim ? q[base_qv + static_cast<size_t>(t) * dim + c] : 0.f;
+  };
+  uint32_t qa[KS][4][3];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int c = s * 16 + 2 * qd;
+    split3(qval(t0, c), qval(t0, c + 1), qa[s][0]);
+    split3(qval(t1, c), qval(t1, c + 1), qa[s][1]);
+    split3(qval(t0, c + 8), qval(t0, c + 9), qa[s][2]);
+    split3(qval(t1, c + 8), qval(t1, c + 9), qa[s][3]);
+  }
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
+  split_entry(0);
+
+  // The scaled, masked logits of the key tile in part set i for rows g
+  // (acc[n][0, 1]) and g + 8 (acc[n][2, 3]) at keys n*8 + 2*qd + e of tile
+  // j; `in` has bit 2n + e set where that key lies before seq.  Bit for bit
+  // the same in both passes.
+  auto logits = [&](int i, int j, float (&acc)[kKeyTiles][4], uint32_t& in) {
+    const __nv_bfloat16* tile = parts(i);
+#pragma unroll
+    for (int n = 0; n < kKeyTiles; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+#pragma unroll
+      for (int n0 = 0; n0 < kKeyTiles; n0 += kF32Group) {
+        uint32_t bp[kF32Group][3][2];
+#pragma unroll
+        for (int pp = 0; pp < kF32Group / 2; ++pp) {  // keys (n0/2 + pp)*16 ..: two n8 tiles
+          const int p16 = n0 / 2 + pp;
+#pragma unroll
+          for (int pt = 0; pt < 3; ++pt) {
+            uint32_t bb[4];
+            if constexpr (kHeadMajor) {  // tile [key][dim]
+              ldmatrix_x4(bb, tile + pt * part + (p16 * 16 + (lane & 7) + (lane >> 4) * 8) * P.ks +
+                                  s * 16 + ((lane >> 3) & 1) * 8);
+            } else {  // tile [dim][key]
+              ldmatrix_x4_trans(bb, tile + pt * part +
+                                        (s * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P.kts +
+                                        p16 * 16 + (lane >> 4) * 8);
+            }
+            bp[2 * pp][pt][0] = bb[0];
+            bp[2 * pp][pt][1] = bb[1];
+            bp[2 * pp + 1][pt][0] = bb[2];
+            bp[2 * pp + 1][pt][1] = bb[3];
+          }
+        }
+        mma_f32x6(acc + n0, qa[s], bp, kF32Group);
+      }
+    }
+    const uint32_t kept0 = keep_bits[i & 1][0], kept1 = keep_bits[i & 1][1];
+    in = 0;
+#pragma unroll
+    for (int n = 0; n < kKeyTiles; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = n * 8 + 2 * qd + e;
+        if (j * kTileKeys + key < seq) in |= 1u << (2 * n + e);
+        const bool kept = ((key < 32 ? kept0 : kept1) >> (key & 31)) & 1u;
+        acc[n][e] = kept ? acc[n][e] * scale : kNegInf;
+        acc[n][2 + e] = kept ? acc[n][2 + e] * scale : kNegInf;
+      }
+    }
+  };
+
+  // Per row, over this lane's keys: the max and the sum of exp(l - max),
+  // rescaled when a tile raises the max (statistics pass); then over the
+  // row's four lanes.  The weights exp(l - max) / sum of the key tile just
+  // multiplied (output pass), and the output accumulators.
+  const float neg_inf = __int_as_float(0xff800000);
+  float m0 = neg_inf, m1 = neg_inf, s0 = 0.f, s1 = 0.f;
+  float2 div0, div1;
+  float w[kKeyTiles][4];
+  float o[2 * KS][4];
+#pragma unroll
+  for (int n = 0; n < 2 * KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int i = 0; i < 3 * ntiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    load_entry(i + kStages);
+    split_entry(i + 1);
+    const int j = tile_of(i);
+    if (i < ntiles) {  // statistics pass
+      uint32_t in;
+      logits(i, j, w, in);
+      float x0 = neg_inf, x1 = neg_inf;
+#pragma unroll
+      for (int n = 0; n < kKeyTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (in & (1u << (2 * n + e))) {
+            x0 = fmaxf(x0, w[n][e]);
+            x1 = fmaxf(x1, w[n][2 + e]);
+          }
+        }
+      }
+      if (x0 > m0) {
+        s0 *= expf(m0 - x0);
+        m0 = x0;
+      }
+      if (x1 > m1) {
+        s1 *= expf(m1 - x1);
+        m1 = x1;
+      }
+#pragma unroll
+      for (int n = 0; n < kKeyTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (in & (1u << (2 * n + e))) {
+            s0 += expf(w[n][e] - m0);
+            s1 += expf(w[n][2 + e] - m1);
+          }
+        }
+      }
+      if (i == ntiles - 1) {
+        combine_stats(m0, s0, 1);
+        combine_stats(m0, s0, 2);
+        combine_stats(m1, s1, 1);
+        combine_stats(m1, s1, 2);
+        div0 = make_float2(s0, __frcp_rn(s0));
+        div1 = make_float2(s1, __frcp_rn(s1));
+      }
+    } else if (!is_values(i)) {  // output pass: the weights of key tile j (0 past seq)
+      uint32_t in;
+      logits(i, j, w, in);
+#pragma unroll
+      for (int n = 0; n < kKeyTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool inside = in & (1u << (2 * n + e));
+          w[n][e] = inside ? divide(expf(w[n][e] - m0), div0) : 0.f;
+          w[n][2 + e] = inside ? divide(expf(w[n][2 + e] - m1), div1) : 0.f;
+        }
+      }
+    } else {  // output pass: P.V over value tile j, the weights' fragments as A
+      const __nv_bfloat16* tile = parts(i);
+      // This tile's share in its own accumulators, added to o in IEEE
+      // float32: the tensor cores' accumulation (not round-to-nearest) then
+      // runs over 64 keys at a time, not over all T.
+      float ot[round_up(2 * KS, kF32Group)][4];  // whole groups, as mma_f32x6 takes them
+#pragma unroll
+      for (int n = 0; n < 2 * KS; ++n) ot[n][0] = ot[n][1] = ot[n][2] = ot[n][3] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kTileKeys / 16; ++s) {  // keys s*16 .. s*16 + 15 of the tile
+        uint32_t a[4][3];
+        split3(w[2 * s][0], w[2 * s][1], a[0]);
+        split3(w[2 * s][2], w[2 * s][3], a[1]);
+        split3(w[2 * s + 1][0], w[2 * s + 1][1], a[2]);
+        split3(w[2 * s + 1][2], w[2 * s + 1][3], a[3]);
+        const __nv_bfloat16* vrow = tile + (s * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P.vs;
+#pragma unroll
+        for (int n0 = 0; n0 < 2 * KS; n0 += kF32Group) {
+          if (n0 >= nv_tiles) break;
+          uint32_t bp[kF32Group][3][2];
+#pragma unroll
+          for (int n = n0; n < n0 + kF32Group; n += 2) {
+            if (n >= nv_tiles) break;
+#pragma unroll
+            for (int pt = 0; pt < 3; ++pt) {
+              uint32_t bb[4];
+              if (n + 1 < nv_tiles) {
+                ldmatrix_x4_trans(bb, vrow + pt * part + n * 8 + (lane >> 4) * 8);
+              } else {
+                ldmatrix_x2_trans(bb, vrow + pt * part + n * 8);
+                bb[2] = bb[3] = 0u;
+              }
+              bp[n - n0][pt][0] = bb[0];
+              bp[n - n0][pt][1] = bb[1];
+              bp[n - n0 + 1][pt][0] = bb[2];
+              bp[n - n0 + 1][pt][1] = bb[3];
+            }
+          }
+          mma_f32x6(ot + n0, a, bp, nv_tiles - n0);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2 * KS; ++n) {
+        o[n][0] += ot[n][0];
+        o[n][1] += ot[n][1];
+        o[n][2] += ot[n][2];
+        o[n][3] += ot[n][3];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < 2 * KS; ++n) {
+    if (n >= nv_tiles) break;
+    const int col = n * 8 + 2 * qd;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (col + e >= head_dim) continue;
+      if (t0 < seq) out[base_qv + static_cast<size_t>(t0) * dim + col + e] = o[n][e];
+      if (t1 < seq) out[base_qv + static_cast<size_t>(t1) * dim + col + e] = o[n][2 + e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -701,23 +1021,6 @@ cudaError_t check_smem(size_t smem) {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   return smem > static_cast<size_t>(optin) ? cudaErrorInvalidConfiguration : cudaSuccess;
-}
-
-template <bool kHeadMajor>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, const void* mask, void* out,
-                       int batch, int seq, int heads, int head_dim, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = fma_shared_bytes(seq, head_dim, kHeadMajor);
-  cudaError_t err = check_smem(smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(encoder_attention_fma_kernel<kHeadMajor>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kFmaRows - 1) / kFmaRows, heads, batch);
-  encoder_attention_fma_kernel<kHeadMajor><<<grid, kFmaThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), seq, heads, head_dim, scale);
-  return cudaGetLastError();
 }
 
 // The widest copy piece (16, 8, 4 or 2 bytes) that divides every address:
@@ -765,50 +1068,77 @@ cudaError_t launch_mma_ks(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
+template <bool kHeadMajor, int KS>
+cudaError_t launch_f32_ks(const void* q, const void* k, const void* v, const void* mask,
+                          void* out, int batch, int seq, int heads, int head_dim, float scale,
+                          cudaStream_t stream) {
+  const size_t smem = make_f32_layout(head_dim).total;
+  cudaError_t err = check_smem(smem);
+  if (err != cudaSuccess) return err;
+  auto kernel = encoder_attention_f32_kernel<kHeadMajor, KS>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int qv_width = copy_width(v, head_dim * 4);
+  int kt_width = 16;
+  if (kHeadMajor) {
+    const int kw = copy_width(k, head_dim * 4);
+    qv_width = kw < qv_width ? kw : qv_width;
+  } else {
+    kt_width = copy_width(k, seq * 4);
+  }
+  const int rows = kMaxWarps * kWarpRows;  // blocks of 8 warps: see the header
+  const dim3 grid((seq + rows - 1) / rows, heads, batch);
+  kernel<<<grid, kMaxWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), seq, heads, head_dim, scale,
+      qv_width, kt_width);
+  return cudaGetLastError();
+}
+
+// dtype 0 (float32) or 1 (bf16), at KS = ceil(head_dim / 16).
 template <bool kHeadMajor>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* mask, void* out,
-                       int batch, int seq, int heads, int head_dim, float scale,
-                       cudaStream_t stream) {
-#define MMA_CASE(KS)                                                                        \
-  case KS:                                                                                  \
-    return launch_mma_ks<kHeadMajor, KS>(q, k, v, mask, out, batch, seq, heads, head_dim, \
-                                         scale, stream);
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* mask,
+                   void* out, int batch, int seq, int heads, int head_dim, float scale,
+                   cudaStream_t stream) {
+#define KS_CASE(KS)                                                                           \
+  case KS:                                                                                    \
+    return dtype == 0 ? launch_f32_ks<kHeadMajor, KS>(q, k, v, mask, out, batch, seq, heads, \
+                                                      head_dim, scale, stream)               \
+                      : launch_mma_ks<kHeadMajor, KS>(q, k, v, mask, out, batch, seq, heads, \
+                                                      head_dim, scale, stream);
   switch ((head_dim + 15) / 16) {
-    MMA_CASE(1)
-    MMA_CASE(2)
-    MMA_CASE(3)
-    MMA_CASE(4)
-    MMA_CASE(5)
-    MMA_CASE(6)
-    MMA_CASE(7)
-    MMA_CASE(8)
+    KS_CASE(1)
+    KS_CASE(2)
+    KS_CASE(3)
+    KS_CASE(4)
+    KS_CASE(5)
+    KS_CASE(6)
+    KS_CASE(7)
+    KS_CASE(8)
     default:
       return cudaErrorInvalidValue;
   }
-#undef MMA_CASE
+#undef KS_CASE
 }
 
 template <bool kHeadMajor>
 int run(const void* q, const void* k, const void* v, const void* mask, void* out, int batch,
         int seq, int heads, int head_dim, int dtype, float scale, void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0 || head_dim <= 0 || head_dim > kFmaThreads) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || head_dim <= 0 || head_dim > kMaxHeadDim ||
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_fma<kHeadMajor>(q, k, v, mask, out, batch, seq, heads, head_dim, scale, s);
-  } else if (dtype == 1) {
-    err = launch_mma<kHeadMajor>(q, k, v, mask, out, batch, seq, heads, head_dim, scale, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch<kHeadMajor>(dtype, q, k, v, mask, out, batch, seq, heads,
+                                             head_dim, scale, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA route), 1 = bf16 (tensor-core route).  mask may be
+// dtype: 0 = float32, 1 = bf16 (both on the tensor cores).  mask may be
 // null (every key valid).  Each returns the CUDA error of the launch (0 on
 // success); neither synchronises.
 

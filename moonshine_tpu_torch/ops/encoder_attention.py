@@ -43,10 +43,10 @@ from ..parallel.mesh import MODEL_AXIS
 from . import _build
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 128  # the float32 kernel gives each head column a thread of its 128
+MAX_HEAD_DIM = 128  # the kernels' k16 steps of Q.K^T, ceil(head_dim / 16), are at most 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_PER_BLOCK = 232_448  # shared memory one Hopper block may opt into
-_TILE_KEYS, _STAGES = 64, 3  # the bf16 kernel's ring: 3 buffers of 64-key tiles
+_TILE_KEYS, _STAGES = 64, 3  # the kernels' rings: 3 buffers of 64-key tiles
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,20 +54,25 @@ def _round_up(x: int, m: int) -> int:
 
 
 def max_frames(head_dim: int, dtype: torch.dtype) -> int:
-    """The longest T (frames) the kernels take at ``head_dim`` and ``dtype``:
-    each block keeps float32 logits rows over every key in shared memory.
+    """The longest T (frames) the kernels take at ``head_dim`` and ``dtype``.
 
-    float32 (the FMA kernel): 16 rows of T floats beside the q tile (16 x
-    hd) and one key tile (64 x hd, + 64 for K2's padded rows).  bf16 (the
-    tensor-core kernel): at least one warp's 16 rows, of T rounded up to 64
-    plus 8 floats, beside three ring buffers of 64-key tiles, each the largest
-    of K1's [kd][72], K2's [64][kd + 8] and the values' [64][vs] in bf16
-    (kd = hd rounded up to 16; vs = hd rounded up to 8, + 8 when that is an
-    even number of 16-byte words).  The same arithmetic as the layouts in
-    ``csrc/encoder_attention.cu``; both kernels are held to the smaller limit.
+    float32 (``encoder_attention_f32_kernel``): no logits are stored (each
+    warp computes Q.K^T twice, once for the row max and sum and once for the
+    weights), so shared memory holds only the ring of 64-key tiles and does
+    not grow with T.  The launch takes the bytes of one of K1's kt rows, 4T,
+    as a 32-bit int (``copy_width``), so 4T < 2^31: T <= 2^29 - 64 (whole
+    64-key tiles), at any head_dim.
+    bf16 (``encoder_attention_mma_kernel``): each block keeps float32 logits
+    rows over every key in shared memory, at least one warp's 16 rows, of T
+    rounded up to 64 plus 8 floats, beside three ring buffers of 64-key
+    tiles, each the largest of K1's [kd][72], K2's [64][kd + 8] and the
+    values' [64][vs] in bf16 (kd = hd rounded up to 16; vs = hd rounded up
+    to 8, + 8 when that is an even number of 16-byte words); both kernels
+    are held to the smaller limit.  The same arithmetic as
+    ``csrc/encoder_attention.cu`` (``make_f32_layout``, ``make_layout``).
     """
     if dtype == torch.float32:
-        return (_SMEM_PER_BLOCK // 4 - head_dim * (16 + 64) - 64) // 16
+        return (2**31 - 1) // 4 // _TILE_KEYS * _TILE_KEYS
     kd, nv = _round_up(head_dim, 16), _round_up(head_dim, 8)
     vs = nv if (nv // 8) % 2 else nv + 8
     ring = max(kd * (_TILE_KEYS + 8), _TILE_KEYS * (kd + 8), _TILE_KEYS * vs) * 2
@@ -138,7 +143,7 @@ def _check_frames(t: int, hd: int, dtype: torch.dtype) -> None:
     if t > max_frames(hd, dtype):
         raise ValueError(
             f"T={t} frames exceeds the kernel's longest, {max_frames(hd, dtype)} at "
-            f"head_dim={hd} in {dtype} (its logits rows live in shared memory)")
+            f"head_dim={hd} in {dtype}")
 
 
 def _check(q, kt, v, frame_mask, heads) -> None:

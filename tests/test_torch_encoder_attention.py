@@ -7,7 +7,10 @@ Tolerances: float32 atol 2e-5 / rtol 1e-4, as the JAX kernel tests use
 one bf16 rounding step of outputs of order one, as the JAX bf16 test uses.
 The CUDA kernel against the plain version, which round at the same points
 and differ only in float32 summation order: bf16 atol 4e-3 / rtol 8e-3,
-about one bf16 rounding step (as chip_smoke.py holds it).
+about one bf16 rounding step; float32 atol 2e-6 / rtol 1e-5 (as
+chip_smoke.py holds them).  The float32 kernels form each product from bf16
+parts of its operands (six passes); an emulation of that arithmetic is held
+here against the plain versions at the same float32 tolerance.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from moonshine_tpu_torch.ops import encoder_attention as ea
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16 = dict(atol=0.02, rtol=0.02)
 BF16_KERNEL = dict(atol=4e-3, rtol=8e-3)
+F32_KERNEL = dict(atol=2e-6, rtol=1e-5)
 
 
 @pytest.fixture
@@ -128,7 +132,7 @@ def test_cuda_kernel_matches_plain(cuda_device, b, t, h, hd, dtype):
         torch.cuda.synchronize()
         assert ea.encoder_attention_packed.launches == before + 1
         ref = ea._encoder_attention_packed_torch(q, kt, v, m, h)
-        tol = F32 if dtype == torch.float32 else BF16_KERNEL
+        tol = F32_KERNEL if dtype == torch.float32 else BF16_KERNEL
         torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
@@ -225,7 +229,7 @@ def test_cuda_hm_kernel_matches_plain(cuda_device, b, t, h, hd, dtype):
         torch.cuda.synchronize()
         assert ea.encoder_attention.launches == before + 1
         ref = ea._encoder_attention_torch(q, k, v, m)
-        tol = F32 if dtype == torch.float32 else BF16_KERNEL
+        tol = F32_KERNEL if dtype == torch.float32 else BF16_KERNEL
         torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
@@ -247,22 +251,31 @@ def test_max_frames_covers_the_longest_bucket(dtype):
 @pytest.mark.parametrize("kernel", ["packed", "head_major"])
 def test_wrapper_refuses_t_beyond_max_frames(kernel, dtype):
     """One frame past the limit raises ValueError before any launch, on
-    every device; the limit itself is taken."""
+    every device; the limit itself passes the wrapper's checks, and runs
+    where the plain version can hold its T x T logits (bf16's 3,136 frames;
+    the float32 kernel's limit, 2^29 - 64, comes from the 32-bit int that
+    holds a kt row's 4T bytes).  The operands are broadcast views, so no T allocates them."""
     hd, h = 52, 1
     limit = ea.max_frames(hd, dtype)
-    counter = ea.encoder_attention_packed if kernel == "packed" else ea.encoder_attention
+    if kernel == "packed":
+        counter, check = ea.encoder_attention_packed, ea._check
+    else:
+        counter, check = ea.encoder_attention, ea._check_hm
     before = counter.launches
     for t in (limit, limit + 1):
-        q, v = (torch.zeros(1, t, h * hd, dtype=dtype) for _ in range(2))
         if kernel == "packed":
-            call = lambda: ea.encoder_attention_packed(q, q.transpose(1, 2).contiguous(), v, None, h)
+            q = torch.zeros(1, 1, h * hd, dtype=dtype).expand(1, t, h * hd)
+            args = (q, q.transpose(1, 2), q, None, h)
         else:
-            call = lambda: ea.encoder_attention(*(x.view(1, t, h, hd) for x in (q, q, v)), None)
+            q = torch.zeros(1, 1, h, hd, dtype=dtype).expand(1, t, h, hd)
+            args = (q, q, q, None)
         if t > limit:
             with pytest.raises(ValueError, match="exceeds"):
-                call()
+                counter(*args)
         else:
-            assert call().shape[1] == t
+            check(*args)
+            if t * t <= 2**24:
+                assert counter(*args).shape[1] == t
     assert counter.launches == before
 
 
@@ -290,12 +303,12 @@ def _card_plain(kernel, q, k, v, mask, h):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", ["packed", "head_major"])
-@pytest.mark.parametrize("b,t,h,hd", [(1, 83, 8, 52), (2, 415, 8, 52), (1, 665, 8, 52),
-                                      (1, 2665, 8, 52), (2, 415, 8, 36)])
+@pytest.mark.parametrize("b,t,h,hd", [(1, 83, 8, 52), (2, 415, 8, 52), (2, 415, 8, 36)] + [
+    (1, t, 8, 52) for t in (82, 165, 332, 665, 1332, 2665)])
 def test_cuda_kernels_at_path_shapes(cuda_device, kernel, b, t, h, hd, dtype):
     """K1 and K2 against their plain versions at odd T (kt rows 2-byte
-    aligned), the Transcriber's buckets at B=1 (a segment shorter than its
-    bucket) up to the 64 s one, and Tiny's hd=36; unmasked and masked."""
+    aligned), every one of the Transcriber's buckets (2-64 s) at B=1 (a
+    segment shorter than its bucket), and Tiny's hd=36; unmasked and masked."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _card_inputs(kernel, b, t, h, hd, dtype, seed=t + hd)
     lengths = torch.tensor([t * 3 // 4] + [t // (i + 2) for i in range(b - 1)])
@@ -304,7 +317,7 @@ def test_cuda_kernels_at_path_shapes(cuda_device, kernel, b, t, h, hd, dtype):
         out = _card_call(kernel, q, k, v, m, h)
         torch.cuda.synchronize()
         ref = _card_plain(kernel, q, k, v, m, h)
-        tol = F32 if dtype == torch.float32 else BF16_KERNEL
+        tol = F32_KERNEL if dtype == torch.float32 else BF16_KERNEL
         torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
@@ -321,7 +334,7 @@ def test_cuda_row_without_valid_key(cuda_device, kernel, dtype):
     torch.cuda.synchronize()
     assert bool(out.isfinite().all())
     ref = _card_plain(kernel, q, k, v, mask, h)
-    tol = F32 if dtype == torch.float32 else BF16_KERNEL
+    tol = F32_KERNEL if dtype == torch.float32 else BF16_KERNEL
     torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
@@ -340,3 +353,123 @@ def test_cuda_batch_independence(cuda_device, kernel, dtype):
         alone = _card_call(kernel, *(x[i:i + 1].contiguous() for x in (q, k, v)),
                            mask[i:i + 1].contiguous(), h)
         assert torch.equal(out[i:i + 1], alone), f"row {i} differs when run alone"
+
+
+# -- The float32 kernels' arithmetic, emulated step by step ------------------
+#
+# encoder_attention_f32_kernel in plain torch: both products as six bf16
+# passes per 16-wide k-step (mma_f32x6), the statistics pass's running max
+# and rescaled sum per lane of a row (four lanes, combined as
+# combine_stats does), the weights exp(l - max) / sum, and P.V summed per
+# 64-key tile and the tiles added in float32.  Only the tensor cores'
+# own accumulation order inside one pass is torch's here.
+
+_TILE = 64  # keys per tile of the kernel's ring
+_PASSES = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))  # parts (a, b), smallest first
+
+
+def _split3(x: torch.Tensor):
+    """float32 x as bf16 hi, mid, lo (held in float32): x - hi and
+    x - hi - mid are exact, so hi + mid + lo is x to about 2^-27 |x|."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    return hi, mid, (x - hi - mid).to(torch.bfloat16).float()
+
+
+def _six_pass_steps(acc, a_parts, b_parts, k0, k1, passes=_PASSES):
+    """acc + a[:, k0:k1] @ b[k0:k1] as the kernel forms it: for each 16-wide
+    k-step, six passes of part products (lo.hi, hi.lo, mid.mid, mid.hi,
+    hi.mid, hi.hi; each exact in float32) into the one accumulator."""
+    for s in range(k0, k1, 16):
+        for pa, pb in passes:
+            acc = acc + a_parts[pa][:, s:s + 16] @ b_parts[pb][s:s + 16]
+    return acc
+
+
+def _row_stats(logits: torch.Tensor):
+    """Each row's max and sum of exp(l - max) as the statistics pass takes
+    them from logits [R, n*64] (-inf past T): lane qd of a row holds keys
+    n*8 + 2*qd + e of every tile and keeps a running max over the tiles,
+    rescaling its sum when the max grows; then lanes 1 apart and 2 apart
+    combine their (max, sum) pairs."""
+    r = logits.shape[0]
+    lanes = logits.view(r, -1, 8, 4, 2).permute(0, 3, 1, 2, 4).reshape(r, 4, -1, 16)
+    m, s = torch.full((r, 4), -float("inf")), torch.zeros(r, 4)
+    for j in range(lanes.shape[2]):
+        x = lanes[:, :, j]
+        xm = x.amax(-1)
+        grow = xm > m
+        s = torch.where(grow, s * torch.exp(m - xm), s)
+        m = torch.where(grow, xm, m)
+        for e in range(16):
+            s = s + torch.where(x[..., e] > -float("inf"), torch.exp(x[..., e] - m), 0.0)
+    for step in (1, 2):
+        other = [lane ^ step for lane in range(4)]
+        mo, so = m[:, other], s[:, other]
+        mm = torch.maximum(m, mo)
+        s = (torch.where(m == mm, s, s * torch.exp(m - mm))
+             + torch.where(mo == mm, so, so * torch.exp(mo - mm)))
+        m = mm
+    return m[:, :1], s[:, :1]
+
+
+def _attention_f32_kernel(q, k, v, mask, passes=_PASSES):
+    """One head of the float32 kernel, emulated: q, k, v [T, hd], mask [T]
+    bool key validity (masked keys -1e9, keys past T none).  ``passes``
+    replaces the six passes of both products."""
+    t, hd = q.shape
+    kd, padded = -(-hd // 16) * 16, -(-t // _TILE) * _TILE
+    acc = _six_pass_steps(torch.zeros(t, t), _split3(q), _split3(k.T.contiguous()), 0, kd,
+                          passes)
+    logits = torch.where(mask[None, :], acc * (float(hd) ** -0.5), ea.NEG_INF)
+    logits = torch.nn.functional.pad(logits, (0, padded - t), value=-float("inf"))
+    m, s = _row_stats(logits)
+    w = torch.exp(logits - m) / s  # 0 past T
+    w_parts = _split3(w)
+    v_parts = _split3(torch.nn.functional.pad(v, (0, 0, 0, padded - t)))
+    out = torch.zeros(t, hd)
+    for j in range(0, padded, _TILE):
+        out = out + _six_pass_steps(torch.zeros(t, hd), w_parts, v_parts, j, j + _TILE, passes)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["packed", "head_major"])
+@pytest.mark.parametrize("t,hd", [(82, 52), (665, 52), (2665, 52), (97, 36)])
+def test_six_pass_products_within_chip_tolerance(kernel, t, hd):
+    """The float32 kernel's arithmetic, emulated head by head, against the
+    float32 plain versions of K1 and K2 at the Transcriber's path shapes
+    (one segment, a quarter of it padding; Base at its 2, 16 and 64 s
+    buckets, Tiny's hd=36): within the tolerance chip_smoke.py holds the
+    kernels to (float32 atol 2e-6, rtol 1e-5)."""
+    b, h = 1, 8
+    rng = np.random.default_rng(t + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, hd)).astype(np.float32))
+               for _ in range(3))
+    mask = torch.arange(t)[None, :] < t * 3 // 4
+    for i in range(h):
+        qh, kh, vh = (x[:, :, i] for x in (q, k, v))  # [B, T, hd]
+        if kernel == "packed":
+            ref = ea._encoder_attention_packed_torch(
+                qh.contiguous(), kh.transpose(1, 2).contiguous(), vh.contiguous(), mask, 1)
+        else:
+            ref = ea._encoder_attention_torch(*(x[:, :, i:i + 1] for x in (q, k, v)), mask)[:, :, 0]
+        torch.testing.assert_close(_attention_f32_kernel(qh[0], kh[0], vh[0], mask[0]), ref[0],
+                                   **F32_KERNEL)
+
+
+@pytest.mark.parametrize("t,passes", [(82, _PASSES[2:]), (665, _PASSES[2:]), (665, _PASSES[5:])])
+def test_chip_tolerance_catches_dropped_passes(t, passes):
+    """The float32 tolerance has room for the six-pass arithmetic but not
+    for less: the emulated kernel without its two lo passes (four passes)
+    or with hi.hi alone (one bf16 product) falls outside it against the
+    plain version, on some head of Base at the 2 or 16 s bucket."""
+    hd, h = 52, 8
+    rng = np.random.default_rng(t + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, t, h, hd)).astype(np.float32))
+               for _ in range(3))
+    mask = torch.arange(t)[None, :] < t * 3 // 4
+    ref = ea._encoder_attention_torch(q, k, v, mask)[0]
+    out = torch.stack([_attention_f32_kernel(q[0, :, i], k[0, :, i], v[0, :, i], mask[0], passes)
+                       for i in range(h)], dim=1)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(out, ref, **F32_KERNEL)

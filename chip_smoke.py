@@ -3,28 +3,38 @@
 
     python3 chip_smoke.py [--batch 64] [--beam-batch 128]
 
-Run from the root of a checkout.  It builds the port's CUDA kernels from
-the sources in the checkout, holds each kernel against its plain PyTorch
+Run from the root of a checkout. It builds the port's CUDA kernels from the
+sources in the checkout, holds each kernel against its plain PyTorch
 version on the card (K1 and K2 also: a batch row alone gives the bits it
 gets in a batch, and every bf16 and float32 build of them holds tensor-core
 and cp.async instructions, read with cuobjdump), times it beside its bound
-and PyTorch's
-own call for the same function, drives the offline transcription path through
-``Transcriber(model="base")`` with random weights (and once with word
-timestamps), checks the card's forward, beam search and speculative
-decoding against the CPU's, and runs the bench's batched offline decodes of
-Moonshine Base (bf16, int8 KV, 9.26 s clips): greedy, and beam 4 over 128
-clips.  Then the parallel layer's path on a world-1 NCCL group and its 1x1
-mesh (sharded encoder attention, greedy, beam and speculative decoding of
-the mesh's rows; every rank's share of a 4x2 mesh against the unsharded
-kernels), and the bench's speculative configuration (Tiny draft, Base
-verifier).  Last it runs the
-LibriSpeech eval harness with beam 4 on a synthetic corpus.  Every phase
-that fails ends the run with a non-zero exit.  The last two lines of
-standard output are the kernels' JSON summary and the device JSON; a
-fuller record goes to chiprun_out/chip_smoke.json.  Without CUDA, or
-without the rest of the repository beside it, it fails before printing
-any result.
+and PyTorch's own call for the same function, drives the offline
+transcription path through ``Transcriber(model="base")`` with random
+weights (and once with word timestamps), checks the card's forward, beam
+search and speculative decoding against the CPU's, and runs the bench's
+batched offline decodes of Moonshine Base (bf16, int8 KV, 9.26 s clips):
+greedy, and beam 4 over 128 clips. Then the parallel layer's path on a
+world-1 NCCL group and its 1x1 mesh (sharded encoder attention, greedy,
+beam and speculative decoding of the mesh's rows; every rank's share of a
+4x2 mesh against the unsharded kernels), and the bench's speculative
+configuration (Tiny draft, Base verifier), and the LibriSpeech eval harness
+with beam 4 on a synthetic corpus. Then w8a8, checkpoints and the streaming
+family: ``[w8a8 main path]`` (the main path's Base through
+``quant.quantize_tree_exec``, driven by
+``Transcriber(model="base").with_params(...)`` on the card, its float32
+tokens held against the CPU's), ``[checkpoint and catalog]`` (the same Base
+written as an HF checkpoint with a tokenizer into a temporary
+``MOONSHINE_TPU_CACHE/base-en/``; ``Transcriber("base", "en")`` must
+resolve both and transcribe as ``with_params`` does, ``transcribe_wav`` as
+``transcribe`` of the wav's samples), ``[w8a8 batched]`` (the bench's
+``--w8a8`` mode beside the float run), ``[streaming]``
+(``Transcriber(model="medium_streaming")`` through a stream, 10 s in 0.5 s
+chunks: update latencies and audio-s/s) and ``[streaming reference]``
+(medium_streaming's tokens on the card against the CPU's). Every phase that
+fails ends the run with a non-zero exit. The last two lines of standard
+output are the kernels' JSON summary and the device JSON; a fuller record
+goes to chiprun_out/chip_smoke.json. Without CUDA, or without the rest of
+the repository beside it, it fails before printing any result.
 """
 
 from __future__ import annotations
@@ -64,6 +74,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 989e12 / 6}
 # 2.4e-6, 0.36.  The kernels' arithmetic with the two lo passes left out
 # already falls outside it (tests/test_torch_encoder_attention.py).
 TOL = {torch.float32: (2e-6, 1e-5), torch.bfloat16: (4e-3, 8e-3)}
+# The w8a8 model, card against CPU, both float32: largest difference of the
+# teacher-forced logits.  Dynamic int8 activations turn float32 rounding
+# differences into whole int8 steps wherever a value sits near a rounding
+# boundary, so the two devices' w8a8 logits differ by far more than their
+# float32 ones (PERF.md §6: 2.8e-2 on an H100 at 700 W, where the float32
+# model's first-step logits differ by 1.1e-6).  A token may then differ
+# where the CPU's two best logits are closer than twice this.
+W8A8_LOGIT_TOL = 0.1
 SPEC_BATCH = 32  # the bench's speculative phase: Base verifier, Tiny draft, 32 clips
 BATCHED_SECONDS = 9.26  # the bench's clip: T=384 encoder frames
 SAMPLE_RATE = 16000
@@ -618,15 +636,21 @@ def _bench_inputs(cfg, batch: int):
     return model, audio, caps, max_tokens
 
 
-def batched_workload(cfg, batch: int):
+def batched_workload(cfg, batch: int, w8a8: bool = False):
     """The bench configuration on the card: the bench's inputs, int8 KV,
-    greedy decode.  Returns (encode, decode, max_tokens), where encode()
-    gives (memory, mask) and decode(memory, mask) the greedy result.
-    scripts/torch_profile.py profiles this same workload."""
+    greedy decode; with ``w8a8`` the bench's --w8a8 mode, the weights
+    exec-quantized after the rotary preparation (bench.py:111-121), so
+    every dense layer runs as int8 x int8 -> int32.  Returns (encode,
+    decode, max_tokens), where encode() gives (memory, mask) and
+    decode(memory, mask) the greedy result.  scripts/torch_profile.py
+    profiles this same workload."""
     from moonshine_tpu_torch.decoding.greedy import greedy_decode
     from moonshine_tpu_torch.models import moonshine as mm
+    from moonshine_tpu_torch.quant import quantize_tree_exec
 
     model, audio, caps, max_tokens = _bench_inputs(cfg, batch)
+    if w8a8:
+        model = quantize_tree_exec(model)
 
     def encode():
         return mm.encode(model, cfg, audio)
@@ -680,9 +704,11 @@ def check_decode(memory, res, cfg, batch: int, max_tokens: int, what: str) -> No
         raise SystemExit(f"{what} produced token ids outside the vocabulary")
 
 
-def phase_batched(ea, cfg, batch: int, card: str) -> dict:
-    """encode + greedy_decode at the bench configuration (batched_workload)."""
-    encode, decode, max_tokens = batched_workload(cfg, batch)
+def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
+    """encode + greedy_decode at the bench configuration (batched_workload,
+    with w8a8 weights if asked): one warm-up and the best of 3."""
+    encode, decode, max_tokens = batched_workload(cfg, batch, w8a8)
+    launches_start = ea.encoder_attention_packed.launches
     memory, res, _, _ = run_once(encode, decode)  # warm-up
     check_decode(memory, res, cfg, batch, max_tokens, "batched decode")
     launches0 = ea.encoder_attention_packed.launches
@@ -702,8 +728,10 @@ def phase_batched(ea, cfg, batch: int, card: str) -> dict:
            "decode_s": decs, "audio_s_per_s": batch * seconds / best,
            "mean_tokens": float(res.lengths.float().mean()),
            "k1_launches_per_encode": per_encode,
+           "k1_launches": ea.encoder_attention_packed.launches - launches_start, "w8a8": w8a8,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"  B={batch} x {seconds} s (T={out['frames']}), {max_tokens} tokens, bf16, int8 KV: "
+    log(f"  B={batch} x {seconds} s (T={out['frames']}), {max_tokens} tokens, bf16, int8 KV"
+        f"{', w8a8 weights' if w8a8 else ''}: "
         f"best {best:.4f} s (encode {min(encs):.4f} s, decode {min(decs):.4f} s) -> "
         f"{out['audio_s_per_s']:.2f} audio-s/s on {card}; {per_encode:.0f} K1 launches per "
         f"encode; mean tokens {out['mean_tokens']:.1f}")
@@ -1119,6 +1147,247 @@ def phase_eval(bg, cfg, tok_path: str, root: str, card: str) -> dict:
     return res
 
 
+def _clip_tokens(model, cfg, clip: np.ndarray, dev: str, max_tokens: int = 48):
+    """One clip's encode (K1 on the card, its plain version on the CPU) and
+    greedy decode, float32 caches.  Returns (memory, mask, tokens [T],
+    length)."""
+    from moonshine_tpu_torch.decoding.greedy import greedy_decode
+    from moonshine_tpu_torch.models import moonshine as mm
+
+    audio = torch.from_numpy(clip)[None].to(dev)
+    with torch.inference_mode():
+        memory, mask = mm.encode(model, cfg, audio, torch.tensor([len(clip)], device=dev))
+        res = greedy_decode(model, cfg, memory, mask, max_tokens=max_tokens)
+    return memory, mask, res.tokens[0].cpu(), int(res.lengths[0])
+
+
+def _forced_logits(model, cfg, memory, mask, tokens) -> torch.Tensor:
+    """Float32 logits [len(tokens) + 1, V] of a decode teacher-forced on
+    ``tokens`` after BOS, on the model's device, brought to the CPU."""
+    from moonshine_tpu_torch.models import moonshine as mm
+
+    seq = torch.cat([torch.tensor([cfg.decoder_start_token_id]), tokens]).to(memory.device)
+    with torch.inference_mode():
+        kc, vc = mm.compute_cross_kv(model.decoder, cfg, memory)
+        cache = mm.init_cache(cfg, 1, seq.numel(), kc, vc, mask)
+        logits, _, _ = mm.decoder_apply(model.decoder, cfg, seq[None], cache)
+    return logits[0].cpu()
+
+
+def phase_w8a8_main_path(ea, tokenizer_path: str, model, cfg) -> dict:
+    """The main path with w8a8 weights: the main path's float32 Base model
+    through quant.quantize_tree_exec (int8 dense layers run as int8 x int8
+    products by torch._int_mm, the B=1 decode's single row padded to 17),
+    driven by Transcriber(model="base", device=None).with_params(...) on
+    the card, VAD off, on clips of 2.5 and 9.26 s.  K1 must launch in every
+    encoder layer.  Then the reference: one 4 s clip's float32 greedy
+    tokens on the card against the same quantized model on the CPU, and
+    both devices' logits teacher-forced on the CPU's tokens.  The logits
+    must agree within W8A8_LOGIT_TOL, and the tokens must be equal up to a
+    first difference (printed) where the CPU's top-2 margin is within twice
+    that, a near-tie that the int8 rounding can flip."""
+    from moonshine_tpu_torch import Transcriber
+    from moonshine_tpu_torch.quant import quantize_tree_exec
+
+    qmodel = quantize_tree_exec(model)
+    if not all(qmodel.encoder.layers[i].mlp.fc1.quantized for i in range(cfg.encoder_layers)):
+        raise SystemExit("quantize_tree_exec left a dense layer float")
+    tr = Transcriber(model="base", tokenizer_path=tokenizer_path, device=None)
+    tr.with_params(qmodel).with_options(vad_threshold=0).load()
+    if tr.device.type != "cuda" or tr.model.decoder.layers[0].mlp.fc1.w_q.device.type != "cuda":
+        raise SystemExit("the w8a8 Transcriber is not on cuda")
+    clips = [synthetic_clip(s, 20 + i) for i, s in enumerate((2.5, BATCHED_SECONDS))]
+    ea.encoder_attention_packed.launches = 0
+    lines, walls = [], []
+    for clip in clips:
+        t0 = time.perf_counter()
+        lines += [line.text or "" for line in tr.transcribe(clip).lines]
+        walls.append(time.perf_counter() - t0)
+    launched = ea.encoder_attention_packed.launches
+    log(f"  {len(lines)} lines, {launched} K1 launches, {sum(walls):.3f} s wall for "
+        f"{sum(len(c) for c in clips) / SAMPLE_RATE:.2f} s of audio; per clip "
+        + ", ".join(f"{len(c) / SAMPLE_RATE:g} s: {w:.3f} s" for c, w in zip(clips, walls)))
+    if launched < cfg.encoder_layers * len(clips):
+        raise SystemExit(f"K1 launched {launched} times for {len(clips)} w8a8 segments")
+
+    clip = synthetic_clip(4.0, 9)
+    cpu_model = copy.deepcopy(qmodel).to("cpu")
+    got = {dev: _clip_tokens(m, cfg, clip, dev) for dev, m in (("cuda", qmodel),
+                                                                ("cpu", cpu_model))}
+    (mem_g, mask_g, t_gpu, n_gpu), (mem_c, mask_c, t_cpu, n_cpu) = got["cuda"], got["cpu"]
+    # Both devices teacher-forced on the CPU's tokens: the logits' largest
+    # difference, and the CPU's top-2 margin at every step.
+    forced = {"cuda": _forced_logits(qmodel, cfg, mem_g, mask_g, t_cpu[:n_cpu]),
+              "cpu": _forced_logits(cpu_model, cfg, mem_c, mask_c, t_cpu[:n_cpu])}
+    logit_err = float((forced["cuda"] - forced["cpu"]).abs().max())
+    top = forced["cpu"].topk(2, dim=-1).values
+    margins = top[:, 0] - top[:, 1]
+    diff = (t_gpu != t_cpu).nonzero()  # EOS-padded: a length change differs too
+    first = int(diff[0]) if len(diff) else None
+    margin = float(margins[first]) if first is not None else None
+    ok = logit_err <= W8A8_LOGIT_TOL and (first is None or margin <= 2 * W8A8_LOGIT_TOL)
+    out = {"lines": len(lines), "k1_launches": launched, "wall_s": walls,
+           "reference": {"tokens": n_cpu, "equal_cpu": first is None,
+                         "forced_logits_max_abs_err": logit_err, "tol": W8A8_LOGIT_TOL,
+                         "first_difference": first, "cpu_top2_margin": margin}}
+    log(f"  reference, 4 s, float32 w8a8: teacher-forced logits card vs cpu max_abs_err "
+        f"{logit_err:.3e} (tol {W8A8_LOGIT_TOL}); card tokens == cpu tokens {first is None} "
+        f"({n_gpu} and {n_cpu} tokens)"
+        + (f"; first difference at step {first}, where the CPU's top-2 logit margin is "
+           f"{margin:.3e}" if first is not None else ""))
+    if not ok:
+        raise SystemExit("the w8a8 model on the card disagrees with the CPU beyond the int8 "
+                         "rounding's reach")
+    return out
+
+
+def phase_checkpoint(ea, tokenizer_path: str, model, cfg, root: str) -> dict:
+    """Checkpoint import and catalog resolution on the card: the main
+    path's float32 Base written as an HF Moonshine checkpoint
+    (weights.export_hf_moonshine, weights.save_safetensors) with the
+    tokenizer into a temporary MOONSHINE_TPU_CACHE/base-en/; then
+    Transcriber("base", "en").load() resolves both through the catalog and
+    must give the transcript that with_params of the same model gives, and
+    transcribe_wav of a written wav the transcript of its samples."""
+    import shutil
+
+    from moonshine_tpu_torch import Transcriber
+    from moonshine_tpu_torch.audio.wav import load_wav, save_wav
+    from moonshine_tpu_torch.weights import export_hf_moonshine, save_safetensors
+
+    entry = os.path.join(root, "base-en")
+    os.makedirs(entry)
+    t0 = time.perf_counter()
+    save_safetensors(os.path.join(entry, "model.safetensors"), export_hf_moonshine(model))
+    shutil.copy(tokenizer_path, os.path.join(entry, "tokenizer.bin"))
+    write_s = time.perf_counter() - t0
+    old = os.environ.get("MOONSHINE_TPU_CACHE")
+    os.environ["MOONSHINE_TPU_CACHE"] = root
+    try:
+        t0 = time.perf_counter()
+        tr = Transcriber("base", "en").with_options(vad_threshold=0).load()
+        load_s = time.perf_counter() - t0
+    finally:
+        if old is None:
+            del os.environ["MOONSHINE_TPU_CACHE"]
+        else:
+            os.environ["MOONSHINE_TPU_CACHE"] = old
+    if str(tr._weights) != os.path.join(entry, "model.safetensors") or tr.device.type != "cuda":
+        raise SystemExit(f"the catalog resolved {tr._weights} on {tr.device}")
+    ref = Transcriber("base", tokenizer_path=tokenizer_path).with_params(model)
+    ref.with_options(vad_threshold=0).load()
+    wav = os.path.join(root, "clip.wav")
+    save_wav(wav, synthetic_clip(BATCHED_SECONDS, 11), SAMPLE_RATE)
+    samples, _ = load_wav(wav)
+    ea.encoder_attention_packed.launches = 0
+    texts = {"catalog": [line.text for line in tr.transcribe(samples).lines],
+             "wav": [line.text for line in tr.transcribe_wav(wav).lines]}
+    launched = ea.encoder_attention_packed.launches
+    texts["with_params"] = [line.text for line in ref.transcribe(samples).lines]
+    same = texts["catalog"] == texts["with_params"] == texts["wav"]
+    log(f"  checkpoint {os.path.getsize(os.path.join(entry, 'model.safetensors')) / 1e6:.1f} MB "
+        f"written in {write_s:.2f} s, Transcriber('base', 'en') loaded through the catalog in "
+        f"{load_s:.2f} s; transcripts equal (catalog, transcribe_wav, with_params) {same}; "
+        f"{launched} K1 launches; first line {texts['catalog'][0][:60]!r}")
+    if not same or launched < 2 * cfg.encoder_layers:
+        raise SystemExit("the catalog's checkpoint does not transcribe as the model it came from")
+    return {"load_s": load_s, "write_s": write_s, "k1_launches": launched,
+            "lines": len(texts["catalog"])}
+
+
+def phase_streaming(tokenizer_path: str, card: str) -> dict:
+    """Transcriber(model="medium_streaming") on the card (random weights,
+    VAD off) through create_stream, over a 10 s synthetic clip fed in
+    0.5 s chunks with an update interval of 0.5 s.  Each add_audio that
+    updates ends with the host reading the decoded tokens, so its wall
+    time is complete: the update latencies (p50, p90) and audio-s/s."""
+    from moonshine_tpu_torch import Transcriber
+
+    seconds, chunk_s = 10.0, 0.5
+    tr = Transcriber(model="medium_streaming", tokenizer_path=tokenizer_path)
+    tr.with_options(vad_threshold=0).load()
+    if tr.device.type != "cuda":
+        raise SystemExit("the streaming Transcriber is not on cuda")
+    clip = synthetic_clip(seconds, 12)
+    n = int(chunk_s * SAMPLE_RATE)
+    out = {}
+    for run in ("warm-up", "timed"):
+        stream = tr.create_stream(update_interval=chunk_s)
+        events = []
+        stream.add_listener(lambda e: events.append(type(e).__name__))
+        stream.start()
+        lat = []
+        t_start = time.perf_counter()
+        for i in range(0, len(clip), n):
+            before = stream._last_update_time
+            t0 = time.perf_counter()
+            stream.add_audio(clip[i:i + n])
+            if stream._last_update_time != before:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        final = stream.stop()
+        stop_ms = (time.perf_counter() - t0) * 1e3
+        wall = time.perf_counter() - t_start
+        tr.free_stream(stream)
+        out[run] = {"updates": len(lat), "latency_ms": lat, "stop_ms": stop_ms, "wall_s": wall,
+                    "audio_s_per_s": seconds / wall, "events": len(events),
+                    "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+                    "p90_ms": float(np.percentile(lat, 90)) if lat else None}
+    row = out["timed"]
+    text = " ".join(line.text or "" for line in final.lines)
+    log(f"  medium_streaming, {seconds:g} s in {chunk_s:g} s chunks: {row['updates']} updates, "
+        f"update latency p50 {row['p50_ms']:.1f} ms, p90 {row['p90_ms']:.1f} ms, final pass "
+        f"{row['stop_ms']:.1f} ms; {row['audio_s_per_s']:.2f} audio-s/s on {card}; "
+        f"{len(final.lines)} lines, {len(text.split())} words, {row['events']} events")
+    if not final.lines or not all(line.is_complete for line in final.lines) or not row["updates"]:
+        raise SystemExit("the stream produced no complete line or no update")
+    out["lines"] = len(final.lines)
+    return out
+
+
+def _stream_tokens(model, cfg, clip: np.ndarray, dev: str, max_tokens: int = 26):
+    """A whole clip through the streaming model on ``dev``: frontend,
+    final encode, greedy decode.  Returns (state, tokens)."""
+    from moonshine_tpu_torch.models import streaming as ms
+
+    n = len(clip) // cfg.frame_len * cfg.frame_len
+    state = ms.init_state(cfg, device=dev)
+    state = ms.frontend_step(model, cfg, torch.from_numpy(clip[:n]).to(dev), state)
+    state, _ = ms.encode(model, cfg, state, is_final=True)
+    tokens, state = ms.decode_full(model, cfg, state, max_tokens=max_tokens)
+    return state, tokens
+
+
+def phase_streaming_reference(cfg) -> dict:
+    """medium_streaming's widths, float32, random weights from seed 0: a
+    4 s clip's final tokens on the card against the CPU's (the same
+    parameters).  Where they differ, the first differing step and the CPU's
+    top-2 logit margin there are printed and the phase fails."""
+    from moonshine_tpu_torch.models import streaming as ms
+
+    model = ms.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    clip = synthetic_clip(4.0, 13)
+    (s_gpu, t_gpu), (s_cpu, t_cpu) = (_stream_tokens(m, cfg, clip, d) for m, d in
+                                      ((model, "cuda"), (cpu_model, "cpu")))
+    mem_err = float((s_gpu.memory[:s_cpu.mem_len].cpu() - s_cpu.memory[:s_cpu.mem_len]).abs().max())
+    same = t_gpu == t_cpu
+    log(f"  medium_streaming, 4 s, float32: {s_cpu.mem_len} memory frames, memory max_abs_err "
+        f"{mem_err:.3e}; card tokens == cpu tokens {same} ({len(t_gpu)} and {len(t_cpu)} tokens)")
+    out = {"tokens": len(t_cpu), "equal_cpu": same, "memory_max_abs_err": mem_err}
+    if not same:
+        step = next((i for i, (a, b) in enumerate(zip(t_gpu, t_cpu)) if a != b),
+                    min(len(t_gpu), len(t_cpu)))
+        seq = torch.tensor([cfg.bos_id] + t_cpu[:step])
+        logits, _, _ = ms.decode_tokens(cpu_model, cfg, seq, ms.decoder_reset(s_cpu))
+        top = logits[-1].topk(2).values
+        out.update(first_difference=step, cpu_top2_margin=float(top[0] - top[1]))
+        log(f"    first difference at step {step}; CPU top-2 logit margin there "
+            f"{out['cpu_top2_margin']:.3e}")
+        raise SystemExit("the streaming model's tokens on the card differ from the CPU's")
+    return out
+
+
 def gather_entry(name: str, replaces: str, launches: int, max_err: float, t: dict,
                  extra: dict | None = None) -> dict:
     return {"name": name, "route": "cuda", "source": "moonshine_tpu_torch/csrc/beam_gather.cu",
@@ -1139,7 +1408,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 2
-    from moonshine_tpu_torch.core.config import BASE, TINY
+    from moonshine_tpu_torch.core.config import BASE, STREAMING_ARCHS, TINY
     from moonshine_tpu_torch.core.tokenizer import BinTokenizer
     from moonshine_tpu_torch.ops import _build
     from moonshine_tpu_torch.ops import beam_gather as bg
@@ -1196,9 +1465,19 @@ def main() -> int:
         beam_ref = phase_beam_reference(model, BASE)
         log("[speculative reference]")
         spec_ref = phase_speculative_reference(model, BASE, TINY)
+        log("[w8a8 main path] Transcriber(model='base').with_params(w8a8 Base) on cuda")
+        w8a8_main = phase_w8a8_main_path(ea, tok_path, model, BASE)
+        log("[checkpoint and catalog] Transcriber('base', 'en') from MOONSHINE_TPU_CACHE")
+        catalog_root = os.path.join(tmp, "cache")
+        os.makedirs(catalog_root)
+        checkpoint = phase_checkpoint(ea, tok_path, model, BASE, catalog_root)
         del model
         log("[batched offline decode]")
         batched = phase_batched(ea, BASE, args.batch, card)
+        log("[w8a8 batched] the bench's --w8a8 mode")
+        w8a8_batched = phase_batched(ea, BASE, args.batch, card, w8a8=True)
+        log(f"  w8a8 {w8a8_batched['audio_s_per_s']:.2f} audio-s/s beside float "
+            f"{batched['audio_s_per_s']:.2f} ({w8a8_batched['audio_s_per_s'] / batched['audio_s_per_s']:.3f}x)")
         log("[batched beam]")
         beam = phase_beam(ea, bg, BASE, args.beam_batch, card)
         log("[sharded path]")
@@ -1209,6 +1488,10 @@ def main() -> int:
         corpus = os.path.join(tmp, "corpus")
         os.makedirs(corpus)
         evaluation = phase_eval(bg, BASE, tok_path, corpus, card)
+        log("[streaming] Transcriber(model='medium_streaming') on cuda, through a stream")
+        streaming = phase_streaming(tok_path, card)
+        log("[streaming reference]")
+        streaming_ref = phase_streaming_reference(STREAMING_ARCHS["medium_streaming"])
 
     k3, k4 = gather_times["K3 int8"], gather_times["K4"]
     k3_bf16 = gather_times["K3 bf16"]
@@ -1224,11 +1507,20 @@ def main() -> int:
                 "f32_shapes": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms",
                                                   "bound_ms", "bound_by")} for r in rows]}
 
+    # K1's launches on every path that runs it, each counted over its own
+    # run (the comparisons with the plain version are not counted).
+    k1_by_path = {"main path": main_launches, "w8a8 main path": w8a8_main["k1_launches"],
+                  "checkpoint and catalog": checkpoint["k1_launches"],
+                  "batched offline decode": batched["k1_launches"],
+                  "w8a8 batched": w8a8_batched["k1_launches"],
+                  "batched beam": beam["launches"]["encoder_attention_packed"],
+                  "sharded path": sharded["launches"]["encoder_attention_packed"]}
     kernels = [{
         "name": "encoder_attention_packed", "route": "cuda",
         "source": "moonshine_tpu_torch/csrc/encoder_attention.cu",
         "replaces": "moonshine_tpu/ops/encoder_attention.py:111",
-        "launches": main_launches, "max_abs_err": max_err,
+        "launches": sum(k1_by_path.values()), "launches_by_path": k1_by_path,
+        "max_abs_err": max_err,
         "tol": {k: list(TOL[getattr(torch, k)]) for k in ("float32", "bfloat16")},
         "ms": times["kernel_ms"], "kernel_ms": times["kernel_ms"],
         "plain_ms": times["plain_ms"], "library_ms": times["library_ms"],
@@ -1261,7 +1553,9 @@ def main() -> int:
               "main_path": main_path, "reference_check": ref, "word_timestamps": words,
               "beam_reference_check": beam_ref, "speculative_reference": spec_ref,
               "batched": batched, "beam": beam, "sharded": sharded,
-              "speculative": speculative, "eval": evaluation,
+              "speculative": speculative, "eval": evaluation, "w8a8_main_path": w8a8_main,
+              "checkpoint": checkpoint, "w8a8_batched": w8a8_batched, "streaming": streaming,
+              "streaming_reference": streaming_ref,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -5,8 +5,9 @@ reference's eval-librispeech.py: corpus WER with the Whisper normalizer
 and VAD disabled, reference: scripts/eval-librispeech.py:87-155).
 Utterances are bucketed by encoder frame count, padded, batched, and
 decoded greedily or with beam search on the device that holds the model.
-The JAX package's data-parallel ``mesh=`` belongs to its parallel layer,
-which the port has not reached yet.
+The JAX package's data-parallel ``mesh=`` is not ported yet (ROADMAP.md
+queue 1, item 13): the port's parallel layer (``parallel/``) exists, but
+``evaluate`` does not split its batches over it.
 
 Dataset layout: standard LibriSpeech extraction
 (``<root>/<split>/<spk>/<chap>/<spk>-<chap>-<utt>.flac`` + ``*.trans.txt``)
@@ -185,7 +186,7 @@ def main(argv=None) -> None:  # pragma: no cover - needs dataset
     p = argparse.ArgumentParser()
     p.add_argument("dataset_root")
     p.add_argument("--arch", default="base")
-    p.add_argument("--weights", default=None)
+    p.add_argument("--weights", default=None, help="an HF Moonshine .safetensors checkpoint")
     p.add_argument("--tokenizer", required=True)
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--limit", type=int, default=None)
@@ -193,13 +194,15 @@ def main(argv=None) -> None:  # pragma: no cover - needs dataset
     p.add_argument("--device", default=None, help="default: cuda")
     args = p.parse_args(argv)
 
-    if args.weights:
-        raise NotImplementedError(
-            "checkpoint import (weights.import_hf_moonshine) is not ported yet: "
-            "see ROADMAP.md queue 1 item 6")
     cfg = ARCHS[args.arch]
     tok = BinTokenizer.from_file(args.tokenizer)
-    model = mm.init_params(cfg, torch.Generator().manual_seed(0), resolve_device(args.device))
+    device = resolve_device(args.device)
+    if args.weights:
+        from ..weights import import_hf_moonshine
+
+        model = import_hf_moonshine(args.weights, cfg, device=device)
+    else:
+        model = mm.init_params(cfg, torch.Generator().manual_seed(0), device)
     out = evaluate(
         model, cfg, tok, args.dataset_root,
         batch_size=args.batch, limit=args.limit, beam_size=args.beam,

@@ -7,7 +7,10 @@ small ``nn.Module`` holders in PyTorch's own layouts: a dense layer keeps
 where JAX keeps ``WIO [k, in, out]``) and a norm ``weight``/``bias``.  The
 functions below take those holders and compute what their JAX namesakes
 compute, with the same dtypes at the same places; ``weights.py`` converts
-between the two layouts.
+between the two layouts.  A dense layer quantized for execution
+(``quant.quantize_tree_exec``) holds ``w_q`` (int8, ``[out, in]``) and
+``w_scale`` (float32, ``[out]``) in place of ``weight``, and ``dense`` runs
+it as the JAX package's w8a8 branch does.
 """
 
 from __future__ import annotations
@@ -22,12 +25,24 @@ def _param(x: torch.Tensor | None) -> nn.Parameter | None:
 
 
 class Dense(nn.Module):
-    """``y = x @ weight.T + bias``; ``weight`` is ``[out, in]``."""
+    """``y = x @ weight.T + bias``; ``weight`` is ``[out, in]``.
 
-    def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None = None):
+    Quantized form (``weight`` None): ``w_q`` int8 ``[out, in]`` and
+    ``w_scale`` float32 ``[out]``, one scale per output channel."""
+
+    def __init__(self, weight: torch.Tensor | None, bias: torch.Tensor | None = None, *,
+                 w_q: torch.Tensor | None = None, w_scale: torch.Tensor | None = None):
         super().__init__()
+        if (weight is None) == (w_q is None) or (w_q is None) != (w_scale is None):
+            raise ValueError("a Dense holds either weight, or w_q and w_scale")
         self.weight = _param(weight)
+        self.w_q = _param(w_q)
+        self.w_scale = _param(w_scale)
         self.bias = _param(bias)
+
+    @property
+    def quantized(self) -> bool:
+        return self.w_q is not None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(self, x)
@@ -80,11 +95,76 @@ def norm_init(dim: int, bias: bool = False) -> Norm:
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
     """Float dense layer in the input's dtype; the bias is added after the
-    product is rounded, as the JAX version does."""
+    product is rounded, as the JAX version does.  A quantized layer takes
+    the w8a8 path (``dense_w8a8``)."""
+    if p.quantized:
+        return dense_w8a8(p, x)
     y = F.linear(x, p.weight.to(x.dtype))
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
     return y
+
+
+_INV_127 = 1.0 / 127.0  # rounded to float32 where it multiplies a float32 tensor
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric int8 activations: one float32 scale per row,
+    ``max(amax, 1e-12) / 127``, and ``round(x / scale)`` (half to even)
+    clipped to +-127, with the bits of the JAX package's compiled program.
+    XLA turns the division by the constant 127 into a product with its
+    float32 reciprocal, so the scale is computed so here too; ``x /
+    scale`` stays a float32 division there and here (a product with a
+    reciprocal would move values at ties)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    s_x = torch.clamp(amax, min=1e-12) * _INV_127
+    x_q = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+    return x_q, s_x
+
+
+# torch._int_mm's CUDA rules (cuBLASLt's int8 product): more than 16 rows,
+# and both the contraction and the output width multiples of 8.
+_INT_MM_MIN_ROWS = 17
+_INT_MM_ALIGN = 8
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """``x_q [..., in] @ w_q[out, in].T`` in exact int32, through
+    ``torch._int_mm`` on every device.  Where a shape breaks its CUDA rules
+    (the B=1 decode gives one row), rows, the contraction and the output
+    width are padded with zeros, which is exact: each output row's int32
+    sum depends on its own row only, and zero terms add nothing.  No shape
+    falls back to a float product.  cuBLASLt's int8 product takes the
+    activations row-major and the weight column-major (``w_q.t()`` of the
+    ``[out, in]`` weight): activations that arrive in another layout (the
+    encoder's first input is a transposed view) are copied row-major."""
+    lead, k = x_q.shape[:-1], x_q.shape[-1]
+    a = x_q.reshape(-1, k).contiguous()
+    m, n = a.shape[0], w_q.shape[0]
+    pad_m = max(_INT_MM_MIN_ROWS - m, 0)
+    pad_k = -k % _INT_MM_ALIGN
+    pad_n = -n % _INT_MM_ALIGN
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    b = F.pad(w_q, (0, pad_k, 0, pad_n)) if pad_k or pad_n else w_q
+    acc = torch._int_mm(a, b.t())
+    if pad_m or pad_n:
+        acc = acc[:m, :n]
+    return acc.reshape(*lead, n)
+
+
+def dense_w8a8(p: Dense, x: torch.Tensor) -> torch.Tensor:
+    """Dynamic-activation int8 x per-channel int8 weight product: the JAX
+    package's ``_dense_w8a8``.  int8 activations (``quantize_rows``), an
+    exact int32 accumulator (``int8_matmul``), then ``* s_x * w_scale`` and
+    the bias in float32, cast to the input's dtype."""
+    x_q, s_x = quantize_rows(x)
+    acc = int8_matmul(x_q, p.w_q)
+    y = acc.float() * s_x * p.w_scale
+    if p.bias is not None:
+        y = y + p.bias
+    return y.to(x.dtype)
 
 
 def conv1d(p: Conv1d, x: torch.Tensor, stride: int) -> torch.Tensor:

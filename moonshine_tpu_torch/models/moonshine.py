@@ -36,6 +36,7 @@ from ..ops.rotary import (
     rotary_tables,
     swap_dense_params,
 )
+from ..quant import weight_of
 from .layers import (
     ACTIVATIONS,
     Conv1d,
@@ -196,20 +197,23 @@ def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               mask: torch.Tensor | None) -> torch.Tensor:
+               mask: torch.Tensor | None, with_weights: bool = False):
     """Split-head attention of the JAX package's XLA path: float32 logits
     and softmax, weights rounded to q's dtype, AV product in q's dtype.
 
     q [B, S, H, hd], k/v [B, T, H, hd], mask bool broadcastable to
     [B, H, S, T] (True = attend).  Products of bf16 values are exact in
     float32, so a float32 product is "bf16 operands, float32 accumulation".
+    With ``with_weights`` it also returns the float32 softmax weights
+    [B, H, S, T] (the JAX package's ``_attention_with_weights``).
     """
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
-    weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhst,bthd->bshd", weights, v)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", weights.to(q.dtype), v)
+    return (out, weights) if with_weights else out
 
 
 def _attention_dm(q, k, v, mask, with_weights: bool = False):
@@ -461,7 +465,9 @@ def compute_cross_kv(p: Decoder, cfg: MoonshineArchConfig,
     for lp in p.layers:
         a = lp.cross_attn
         for proj, out in ((a.k, ks), (a.v, vs)):
-            w = proj.weight.to(memory.dtype).reshape(h, hd, cfg.hidden_size)
+            # weight_of: an exec-quantized layer's weight, dequantized in the
+            # memory's dtype, as the JAX package folds it into this product.
+            w = weight_of(proj, memory.dtype).reshape(h, hd, cfg.hidden_size)
             x = torch.einsum("btd,hkd->bhkt", memory, w)
             if proj.bias is not None:
                 x = x + proj.bias.to(memory.dtype).reshape(1, h, hd, 1)

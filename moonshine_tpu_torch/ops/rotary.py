@@ -54,9 +54,14 @@ def pair_swap_perm(head_dim: int, half: int, heads: int = 1) -> np.ndarray:
 
 def swap_dense_params(p: Dense, perm: np.ndarray) -> Dense:
     """Permute a dense layer's OUTPUT channels: y' = y[..., perm].  Exact:
-    a gather of weight rows, no arithmetic."""
-    idx = torch.as_tensor(perm, device=p.weight.device)
-    return Dense(p.weight[idx], None if p.bias is None else p.bias[idx])
+    a gather of weight rows, no arithmetic.  A quantized layer has its
+    ``w_q`` rows and ``w_scale`` permuted, as the JAX package's ``permute``
+    does, so rotary preparation and quantization commute."""
+    idx = torch.as_tensor(perm, device=(p.w_q if p.quantized else p.weight).device)
+    bias = None if p.bias is None else p.bias[idx]
+    if p.quantized:
+        return Dense(None, bias, w_q=p.w_q[idx], w_scale=p.w_scale[idx])
+    return Dense(p.weight[idx], bias)
 
 
 def apply_rotary_fullwidth(

@@ -1,10 +1,12 @@
 """ASR backends: the model-facing seam of the transcription pipeline.
 
-Counterpart of the JAX package's ``pipeline/backends.py`` for the offline
-(non-streaming) model family.  ``OfflineBackend`` re-transcribes each
+Counterpart of the JAX package's ``pipeline/backends.py``.
+``OfflineBackend`` (the non-streaming models) re-transcribes each
 just-updated segment whole.  Audio is padded to exponential duration
 buckets, as in the JAX package (there so that XLA compiles few shapes; here
 it keeps the two packages' inputs, and so their outputs, the same).
+``StreamingBackend`` (the streaming family) keeps one incremental state per
+segment and feeds only new samples through it.
 """
 
 from __future__ import annotations
@@ -14,10 +16,12 @@ from typing import NamedTuple, Protocol
 import numpy as np
 import torch
 
-from ..core.config import MoonshineArchConfig
+from .. import profiling
+from ..core.config import MoonshineArchConfig, StreamingConfig
 from ..core.tokenizer import BinTokenizer
 from ..decoding.greedy import greedy_decode
 from ..models import moonshine as mm
+from ..models import streaming as ms
 
 INTERNAL_SAMPLE_RATE = 16000
 
@@ -112,15 +116,20 @@ class OfflineBackend:
         padded = np.zeros(n_bucket, np.float32)
         padded[:n_real] = audio[:n_real]
         lengths = torch.tensor([n_real], device=self.device)
-        memory, mask = mm.encode(
-            self.model, self.cfg, torch.from_numpy(padded)[None].to(self.device), lengths,
-            attn_impl="auto")
+        # The run-log spans of the JAX package.  On CUDA the encode span ends
+        # once its kernels are enqueued; the decode span's host read of the
+        # lengths waits for both.
+        with profiling.log_run("encode", samples=n_bucket):
+            memory, mask = mm.encode(
+                self.model, self.cfg, torch.from_numpy(padded)[None].to(self.device), lengths,
+                attn_impl="auto")
         duration = n_real / INTERNAL_SAMPLE_RATE
         cap = max(int(duration * self.max_tokens_per_second), 1)
         max_tokens = max(int(n_bucket / INTERNAL_SAMPLE_RATE * self.max_tokens_per_second), 8)
-        res = greedy_decode(self.model, self.cfg, memory, mask, max_tokens=max_tokens,
-                            token_caps=torch.tensor([cap]), kv_int8=self.kv_int8)
-        n = int(res.lengths[0])
+        with profiling.log_run("decode", max_tokens=max_tokens):
+            res = greedy_decode(self.model, self.cfg, memory, mask, max_tokens=max_tokens,
+                                token_caps=torch.tensor([cap]), kv_int8=self.kv_int8)
+            n = int(res.lengths[0])
         ids = res.tokens[0, :n].cpu().numpy()
         words = []
         if self.word_timestamps and is_final and n > 0:
@@ -128,3 +137,138 @@ class OfflineBackend:
             # transcribed whole again at its next update.
             words = self._align(memory, mask, ids, duration)
         return SegmentResult(self.tokenizer.tokens_to_text(ids), words)
+
+
+class StreamingBackend:
+    """Incremental transcription with the streaming model family.
+
+    Per segment it keeps a ``StreamingState`` on the model's device, feeds
+    only new samples through the stateful frontend, emits newly stable
+    encoder frames, and re-decodes with the previous hypothesis as a
+    speculative draft (``models.streaming.decode_full_fused``).
+    """
+
+    # Frame-count buckets for frontend chunks, the JAX package's (there so
+    # that few programs compile); kept so that both packages see the same
+    # chunks, and so the same features.
+    _BUCKETS = [512, 400, 256, 200, 128, 100, 64, 50, 32, 25, 16, 8, 4, 2, 1]
+
+    def __init__(
+        self,
+        model: ms.StreamingMoonshine,
+        cfg: StreamingConfig,
+        tokenizer: BinTokenizer,
+        use_speculative_decoding: bool = True,
+        max_tokens_per_second: float = 6.5,
+        word_timestamps: bool = False,
+    ):
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.use_speculative = use_speculative_decoding
+        self.max_tokens_per_second = max_tokens_per_second
+        self.word_timestamps = word_timestamps
+        self.reset()
+
+    def reset(self) -> None:
+        self._segment_id: int | None = None
+        self._state = None
+        self._samples_processed = 0
+        self._last_tokens: list[int] = []
+        self._last_text = ""
+        # Host mirrors of the state's feat_count / enc_emitted cursors, as
+        # in the JAX package (where the cursors live on the device): an
+        # update needs no read of the state to know what is stable.
+        self._feat_host = 0
+        self._emitted_host = 0
+
+    def _begin_segment(self, segment_id: int) -> None:
+        self.reset()
+        self._segment_id = segment_id
+        self._state = ms.init_state(self.cfg, device=self.device)
+
+    @torch.inference_mode()
+    def transcribe_segment(
+        self, audio: np.ndarray, segment_id: int, is_final: bool
+    ) -> SegmentResult:
+        if segment_id != self._segment_id:
+            self._begin_segment(segment_id)
+        result = self._transcribe(np.asarray(audio, np.float32), is_final)
+        words = []
+        if self.word_timestamps and is_final and self._last_tokens:
+            words = self._align_streaming()
+        return SegmentResult(result, words)
+
+    def _transcribe(self, audio: np.ndarray, is_final: bool) -> str:
+        cfg = self.cfg
+        new = audio[self._samples_processed:]
+        frame_len = cfg.frame_len
+        n_frames = len(new) // frame_len
+        if is_final and len(new) % frame_len and len(new) > 0:
+            # Zero-pad the trailing partial frame on segment close.
+            pad = frame_len - (len(new) % frame_len)
+            new = np.concatenate([new, np.zeros(pad, np.float32)])
+            n_frames = len(new) // frame_len
+        # Respect the state's capacity (the VAD's force-split keeps real
+        # segments far below it).
+        n_frames = min(n_frames, ms.SEG_CAP - self._feat_host)
+
+        offset = 0
+        remaining = n_frames
+        with profiling.log_run("frontend", frames=n_frames):
+            samples = torch.from_numpy(np.ascontiguousarray(new[:n_frames * frame_len]))
+            samples = samples.to(self.device)  # one copy per update
+            for bucket in self._BUCKETS:
+                while remaining >= bucket:
+                    chunk = samples[offset:offset + bucket * frame_len]
+                    self._state = ms.frontend_step(self.model, cfg, chunk, self._state)
+                    offset += bucket * frame_len
+                    remaining -= bucket
+                    self._feat_host += bucket
+        self._samples_processed += offset
+
+        # Stable-frame arithmetic on the host mirrors.
+        stable = self._feat_host if is_final else max(0, self._feat_host - cfg.total_lookahead)
+        n_new = max(stable - self._emitted_host, 0)
+        with profiling.log_run("encode_step"):
+            emitted = 0
+            while emitted < n_new:
+                step = min(n_new - emitted, ms.ENC_STEP)
+                self._state = ms.encode_step(self.model, cfg, self._state, step)
+                emitted += step
+            self._emitted_host += n_new
+        if self._emitted_host == 0:
+            return ""
+        if n_new == 0 and not is_final and self._last_text:
+            # Nothing newly stable: the previous hypothesis still holds.
+            return self._last_text
+
+        duration = self._samples_processed / INTERNAL_SAMPLE_RATE
+        cap = min(max(int(duration * self.max_tokens_per_second), 1), cfg.max_seq_len - 2)
+        draft = (self._last_tokens if self.use_speculative else [])[:cfg.max_seq_len]
+        with profiling.log_run("decode_full", draft=len(draft)):
+            tokens, self._state = ms.decode_full_fused(
+                self.model, cfg, self._state, draft, cap,
+                mem_bucket=ms.mem_bucket_for(self._emitted_host))
+        self._last_tokens = tokens
+        self._last_text = self.tokenizer.tokens_to_text(tokens)
+        return self._last_text
+
+    def _align_streaming(self) -> list:
+        """A teacher-forced pass over the final tokens that collects the
+        cross-attention, then DTW (``alignment.align_words``)."""
+        from .alignment import align_words
+
+        cfg = self.cfg
+        seq_list = [cfg.bos_id] + self._last_tokens
+        seq = torch.tensor(seq_list, device=self.device)
+        state = ms.decoder_reset(self._state)
+        _, _, cross_w = ms.decode_tokens(self.model, cfg, seq, state, collect_attention=True)
+        mem_len = self._emitted_host
+        # [L, H, s, MEM_CAP] -> [L*H, steps, valid frames]
+        w = cross_w.cpu().numpy()
+        att = w.reshape(-1, w.shape[2], w.shape[3])[:, :, :mem_len]
+        tokens = seq_list + [cfg.eos_id]
+        duration = self._samples_processed / INTERNAL_SAMPLE_RATE
+        return align_words(att, tokens, duration / max(mem_len, 1), self.tokenizer)

@@ -21,8 +21,8 @@ Contracts kept:
   itself (reference: transcriber.h:40).
 
 A copy of the JAX package's ``pipeline/transcriber.py`` without the
-spelling fusion, speaker diarization and device-run log: the port has not
-ported those models yet, so asking for them raises ``NotImplementedError``.
+spelling fusion and speaker diarization: the port has not ported those
+models yet, so asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -273,11 +273,16 @@ class Transcriber:
     ):
         self.backend = backend
         self.options = options or TranscriberOptions()
-        if (self.options.log_model_run or self.options.spelling_mode
-                or self.options.identify_speakers):
+        if self.options.spelling_mode or self.options.identify_speakers:
             raise NotImplementedError(
-                "log_model_run, spelling_mode and identify_speakers are not "
-                "ported yet (see ROADMAP.md queue 1)")
+                "spelling_mode and identify_speakers are not ported yet (see "
+                "ROADMAP.md queue 1)")
+        if self.options.log_model_run:
+            # The log_ort_run analog: stderr timing of every device run
+            # (see profiling.py).
+            from .. import profiling
+
+            profiling.enable_device_run_log(True)
         self.hop_prob_fn = hop_prob_fn
         self._streams: dict[int, Stream] = {}
         self._next_stream_id = itertools.count()

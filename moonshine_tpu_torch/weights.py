@@ -1,24 +1,43 @@
-"""Carry parameter trees of the JAX package into the port's modules.
+"""Checkpoints and parameter trees -> the port's modules, and back.
 
-The JAX package keeps parameters as nested dicts with the layers stacked on
-a leading axis, dense kernels ``[in, out]`` and conv kernels ``[k, in, out]``
-(WIO).  The port keeps one module per layer, dense weights ``[out, in]`` and
-conv weights ``[out, in, k]``.  The functions here take the JAX tree as
-numpy arrays (a caller that has JAX passes ``jax.tree.map(np.asarray,
-params)``; the port itself never imports JAX) and convert in both
-directions.  Every leaf is made C-contiguous before it becomes a tensor: a
-numpy view of a device array can be F-strided, and ``torch.from_numpy``
-would keep those strides.
+Two sources of weights:
+
+- **Checkpoints** in PyTorch naming: ``import_hf_moonshine`` reads an HF
+  Moonshine state dict or ``.safetensors`` file, and ``import_streaming`` /
+  ``load_streaming_checkpoint`` the streaming family's canonical state dict
+  (``.safetensors``, ``model.onnx`` or the reference's five-session ONNX
+  directory).  PyTorch's layouts are the port's (``Linear.weight [out,
+  in]``, ``Conv1d.weight [out, in, k]``), so these need no transpose.
+  ``load_safetensors`` reads the format itself (an 8-byte little-endian
+  header length, a JSON header, raw little-endian tensors), so no
+  ``safetensors`` package is needed.
+- **JAX parameter trees**: the JAX package keeps nested dicts with the
+  layers stacked on a leading axis, dense kernels ``[in, out]`` and conv
+  kernels ``[k, in, out]`` (WIO).  ``params_from_jax_numpy`` and
+  ``params_to_numpy`` convert in both directions, exec-quantized
+  ``w_q``/``w_scale`` leaves included.  They take the tree as numpy arrays
+  (a caller that has JAX passes ``jax.tree.map(np.asarray, params)``; the
+  port itself never imports JAX).
+
+Every leaf is made C-contiguous before it becomes a tensor: a numpy view of
+a device array can be F-strided, and ``torch.from_numpy`` would keep those
+strides.  Loaders put the model on ``device``, CUDA unless named.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import struct
+from typing import Mapping
+
 import numpy as np
 import torch
 
-from .core.config import MoonshineArchConfig
+from .core.config import MoonshineArchConfig, StreamingConfig
 from .core.device import resolve_device
 from .models import moonshine as mm
+from .models import streaming as ms
 from .models import vad as vad_mod
 from .models.layers import Conv1d, Dense, Norm
 
@@ -41,10 +60,10 @@ def _numpy(t: torch.Tensor | None) -> np.ndarray | None:
 
 
 def _dense(p: dict) -> Dense:
-    if "w" not in p:
-        raise NotImplementedError(
-            "quantized (w8a8) dense layers are not ported yet; pass a float tree")
     bias = _tensor(p["b"]) if "b" in p else None
+    if "w_q" in p:  # exec-quantized (quant.quantize_tree_exec)
+        return Dense(None, bias, w_q=_tensor(np.swapaxes(p["w_q"], 0, 1)),
+                     w_scale=_tensor(p["w_scale"]))
     return Dense(_tensor(np.swapaxes(p["w"], 0, 1)), bias)
 
 
@@ -107,7 +126,10 @@ def params_from_jax_numpy(tree: dict, cfg: MoonshineArchConfig,
 
 
 def _dense_np(p: Dense) -> dict:
-    out = {"w": _numpy(p.weight).T.copy()}
+    if p.quantized:
+        out = {"w_q": _numpy(p.w_q).T.copy(), "w_scale": _numpy(p.w_scale)}
+    else:
+        out = {"w": _numpy(p.weight).T.copy()}
     if p.bias is not None:
         out["b"] = _numpy(p.bias)
     return out
@@ -143,7 +165,8 @@ def _stack(trees: list):
 
 def params_to_numpy(model: mm.Moonshine) -> dict:
     """The port's ``Moonshine`` -> a JAX-layout parameter tree of numpy
-    arrays (layers stacked; bf16 weights come back as float32)."""
+    arrays (layers stacked; bf16 weights come back as float32; quantized
+    layers as ``w_q``/``w_scale``)."""
     fe = model.frontend
     enc_layers = [
         {"ln1": _norm_np(lp.ln1), "attn": _attention_np(lp.attn), "ln2": _norm_np(lp.ln2),
@@ -186,3 +209,312 @@ def vad_params_to_numpy(model: vad_mod.Vad) -> dict:
         "lstm": {"wi": _dense_np(model.lstm.wi), "wh": _dense_np(model.lstm.wh)},
         "head": _dense_np(model.head),
     }
+
+
+# =========================================================================
+# safetensors, read without the safetensors package
+# =========================================================================
+
+_SAFETENSORS_DTYPES = {
+    "F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4", "I16": "<i2",
+    "I8": "i1", "U8": "u1", "BOOL": "?",
+}
+
+
+def load_safetensors(path: str | os.PathLike) -> dict[str, np.ndarray]:
+    """Every tensor of a ``.safetensors`` file as a numpy array.
+
+    The format: an 8-byte little-endian header length, a JSON header
+    mapping each name to its dtype, shape and byte range, then the raw
+    little-endian data.  BF16 tensors come back as float32 (exact: a bf16
+    value is the top half of a float32).
+    """
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        raw = data[start:end]
+        if info["dtype"] == "BF16":
+            bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
+            arr = bits.view(np.float32)
+        elif info["dtype"] in _SAFETENSORS_DTYPES:
+            arr = np.frombuffer(raw, _SAFETENSORS_DTYPES[info["dtype"]])
+        else:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {info['dtype']}")
+        out[name] = arr.reshape(shape)
+    return out
+
+
+_SAFETENSORS_NAMES = {np.dtype(v): k for k, v in _SAFETENSORS_DTYPES.items()}
+
+
+def save_safetensors(path: str | os.PathLike, tensors: Mapping[str, np.ndarray]) -> None:
+    """Write numpy arrays as a ``.safetensors`` file (the layout
+    ``load_safetensors`` reads; float32, float16 and the integer types)."""
+    header, chunks, offset = {}, [], 0
+    for name, arr in tensors.items():
+        arr = np.ascontiguousarray(arr)
+        data = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": _SAFETENSORS_NAMES[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        chunks.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in chunks:
+            f.write(data)
+
+
+# =========================================================================
+# Checkpoints in PyTorch naming: the layouts are the port's own
+# =========================================================================
+
+def _as_state_dict(sd: Mapping[str, np.ndarray] | str | os.PathLike) -> Mapping[str, np.ndarray]:
+    return load_safetensors(sd) if isinstance(sd, (str, os.PathLike)) else sd
+
+
+def _sd(cls, sd, prefix: str, dtype):
+    """A ``Dense``, ``Norm`` or ``Conv1d`` from ``prefix.weight`` (and
+    ``prefix.bias`` where the checkpoint has one)."""
+    bias = sd.get(f"{prefix}.bias")
+    return cls(_tensor(sd[f"{prefix}.weight"]).to(dtype),
+               None if bias is None else _tensor(bias).to(dtype))
+
+
+def _sd_attention(sd, prefix: str, dtype) -> mm.Attention:
+    return mm.Attention(*(_sd(Dense, sd, f"{prefix}.{n}_proj", dtype) for n in "qkvo"))
+
+
+def _sd_mlp(sd, prefix: str, dtype) -> mm.Mlp:
+    return mm.Mlp(_sd(Dense, sd, f"{prefix}.fc1", dtype), _sd(Dense, sd, f"{prefix}.fc2", dtype))
+
+
+def _sd_encoder_layer(sd, pre: str, dtype) -> mm.EncoderLayer:
+    return mm.EncoderLayer(
+        _sd(Norm, sd, f"{pre}.input_layernorm", dtype), _sd_attention(sd, f"{pre}.self_attn", dtype),
+        _sd(Norm, sd, f"{pre}.post_attention_layernorm", dtype), _sd_mlp(sd, f"{pre}.mlp", dtype))
+
+
+def _sd_decoder_layer(sd, pre: str, dtype) -> mm.DecoderLayer:
+    return mm.DecoderLayer(
+        _sd(Norm, sd, f"{pre}.input_layernorm", dtype), _sd_attention(sd, f"{pre}.self_attn", dtype),
+        _sd(Norm, sd, f"{pre}.post_attention_layernorm", dtype),
+        _sd_attention(sd, f"{pre}.encoder_attn", dtype),
+        _sd(Norm, sd, f"{pre}.final_layernorm", dtype), _sd_mlp(sd, f"{pre}.mlp", dtype))
+
+
+def _put(out: dict, prefix: str, holder) -> None:
+    """A Dense/Norm/Conv1d -> ``prefix.weight`` (and ``prefix.bias``)."""
+    if isinstance(holder, Dense) and holder.quantized:
+        raise ValueError(f"{prefix}: export a float model, not an exec-quantized one")
+    out[f"{prefix}.weight"] = _numpy(holder.weight)
+    if holder.bias is not None:
+        out[f"{prefix}.bias"] = _numpy(holder.bias)
+
+
+def _put_attention(out: dict, prefix: str, a: mm.Attention) -> None:
+    for n in "qkvo":
+        _put(out, f"{prefix}.{n}_proj", getattr(a, n))
+
+
+def _put_encoder_layer(out: dict, pre: str, lp: mm.EncoderLayer) -> None:
+    _put(out, f"{pre}.input_layernorm", lp.ln1)
+    _put_attention(out, f"{pre}.self_attn", lp.attn)
+    _put(out, f"{pre}.post_attention_layernorm", lp.ln2)
+    _put(out, f"{pre}.mlp.fc1", lp.mlp.fc1)
+    _put(out, f"{pre}.mlp.fc2", lp.mlp.fc2)
+
+
+def _put_decoder(out: dict, pre: str, dec: mm.Decoder) -> None:
+    out[f"{pre}.embed_tokens.weight"] = _numpy(dec.embed)
+    for i, lp in enumerate(dec.layers):
+        lpre = f"{pre}.layers.{i}"
+        _put(out, f"{lpre}.input_layernorm", lp.ln1)
+        _put_attention(out, f"{lpre}.self_attn", lp.self_attn)
+        _put(out, f"{lpre}.post_attention_layernorm", lp.ln2)
+        _put_attention(out, f"{lpre}.encoder_attn", lp.cross_attn)
+        _put(out, f"{lpre}.final_layernorm", lp.ln3)
+        _put(out, f"{lpre}.mlp.fc1", lp.mlp.fc1)
+        _put(out, f"{lpre}.mlp.fc2", lp.mlp.fc2)
+    _put(out, f"{pre}.norm", dec.norm)
+
+
+def import_hf_moonshine(
+    sd: Mapping[str, np.ndarray] | str | os.PathLike,
+    cfg: MoonshineArchConfig,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = None,
+) -> mm.Moonshine:
+    """An HF Moonshine checkpoint (a state dict of numpy arrays or a
+    ``.safetensors`` path) -> the port's ``Moonshine`` on ``device`` (CUDA
+    unless named), with the encoder's pair-swapped rotary projections.
+
+    HF's ``Linear.weight`` is ``[out, in]`` and its ``Conv1d.weight``
+    ``[out, in, k]``, the port's own layouts, so no weight is transposed.
+    Both ``MoonshineForConditionalGeneration`` names (``model.`` prefix)
+    and bare ``MoonshineModel`` names import.
+    """
+    sd = _as_state_dict(sd)
+    if not any(k.startswith("model.") for k in sd) and any(k.startswith("encoder.") for k in sd):
+        sd = {f"model.{k}": v for k, v in sd.items()}
+    enc, dec = "model.encoder", "model.decoder"
+    frontend = mm.Frontend(
+        _sd(Conv1d, sd, f"{enc}.conv1", dtype), _sd(Norm, sd, f"{enc}.groupnorm", dtype),
+        _sd(Conv1d, sd, f"{enc}.conv2", dtype), _sd(Conv1d, sd, f"{enc}.conv3", dtype))
+    enc_layers = [_sd_encoder_layer(sd, f"{enc}.layers.{i}", dtype)
+                  for i in range(cfg.encoder_layers)]
+    dec_layers = [_sd_decoder_layer(sd, f"{dec}.layers.{i}", dtype)
+                  for i in range(cfg.decoder_layers)]
+    model = mm.Moonshine(
+        frontend,
+        mm.Encoder(enc_layers, _sd(Norm, sd, f"{enc}.layer_norm", dtype)),
+        mm.Decoder(_tensor(sd[f"{dec}.embed_tokens.weight"]).to(dtype), dec_layers,
+                   _sd(Norm, sd, f"{dec}.norm", dtype)),
+    )
+    return mm.prepare_rotary_params(model, cfg).to(resolve_device(device))
+
+
+def export_hf_moonshine(model: mm.Moonshine) -> dict[str, np.ndarray]:
+    """The port's float ``Moonshine`` -> an HF Moonshine state dict
+    (``MoonshineForConditionalGeneration`` names, numpy, float32), the
+    inverse of ``import_hf_moonshine``; the pair-swapped rotary
+    projections are load-time copies and are not written."""
+    out: dict[str, np.ndarray] = {}
+    enc, dec = "model.encoder", "model.decoder"
+    fe = model.frontend
+    for name, holder in (("conv1", fe.conv1), ("groupnorm", fe.gn), ("conv2", fe.conv2),
+                         ("conv3", fe.conv3)):
+        _put(out, f"{enc}.{name}", holder)
+    for i, lp in enumerate(model.encoder.layers):
+        _put_encoder_layer(out, f"{enc}.layers.{i}", lp)
+    _put(out, f"{enc}.layer_norm", model.encoder.norm)
+    _put_decoder(out, dec, model.decoder)
+    return out
+
+
+# -- the streaming family -------------------------------------------------
+
+def export_streaming_state_dict(model: ms.StreamingMoonshine,
+                                cfg: StreamingConfig) -> dict[str, np.ndarray]:
+    """The port's streaming model -> the canonical flat state dict (numpy,
+    PyTorch naming and layouts), the inverse of ``import_streaming``."""
+    del cfg  # the model's own layers say its depth
+    out: dict[str, np.ndarray] = {}
+    fr = model.frontend
+    _put(out, "frontend.proj", fr.proj)
+    _put(out, "frontend.conv1", fr.conv1)
+    _put(out, "frontend.conv2", fr.conv2)
+    _put(out, "frontend.norm", fr.norm)
+    _put(out, "encoder.in_proj", model.encoder.in_proj)
+    for i, lp in enumerate(model.encoder.layers):
+        _put_encoder_layer(out, f"encoder.layers.{i}", lp)
+    _put(out, "encoder.layer_norm", model.encoder.norm)
+    _put(out, "adapter.proj", model.adapter.proj)
+    _put(out, "adapter.norm", model.adapter.norm)
+    _put_decoder(out, "decoder", model.decoder)
+    return out
+
+
+def import_streaming(
+    sd: Mapping[str, np.ndarray] | str | os.PathLike,
+    cfg: StreamingConfig,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = None,
+) -> ms.StreamingMoonshine:
+    """The canonical streaming state dict (or a ``.safetensors`` path) ->
+    the port's ``StreamingMoonshine`` on ``device`` (CUDA unless named).
+    An optional leading ``model.`` is stripped."""
+    sd = _as_state_dict(sd)
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
+    frontend = ms.StreamingFrontend(
+        _sd(Dense, sd, "frontend.proj", dtype), _sd(Conv1d, sd, "frontend.conv1", dtype),
+        _sd(Conv1d, sd, "frontend.conv2", dtype), _sd(Norm, sd, "frontend.norm", dtype))
+    enc_layers = [_sd_encoder_layer(sd, f"encoder.layers.{i}", dtype)
+                  for i in range(cfg.enc_depth)]
+    dec_layers = [_sd_decoder_layer(sd, f"decoder.layers.{i}", dtype)
+                  for i in range(cfg.depth)]
+    model = ms.StreamingMoonshine(
+        frontend,
+        ms.StreamingEncoder(_sd(Dense, sd, "encoder.in_proj", dtype), enc_layers,
+                            _sd(Norm, sd, "encoder.layer_norm", dtype)),
+        ms.Adapter(_sd(Dense, sd, "adapter.proj", dtype), _sd(Norm, sd, "adapter.norm", dtype)),
+        mm.Decoder(_tensor(sd["decoder.embed_tokens.weight"]).to(dtype), dec_layers,
+                   _sd(Norm, sd, "decoder.norm", dtype)),
+    )
+    return model.to(resolve_device(device))
+
+
+# Session membership for the five-file distribution form (which weights
+# each of the reference's ONNX sessions holds).
+STREAMING_SESSIONS = ("frontend", "encoder", "adapter", "cross_kv", "decoder_kv")
+
+
+def _session_of(key: str) -> str:
+    if key.startswith("frontend."):
+        return "frontend"
+    if key.startswith("encoder."):
+        return "encoder"
+    if key.startswith("adapter."):
+        return "adapter"
+    if ".encoder_attn.k_proj" in key or ".encoder_attn.v_proj" in key:
+        return "cross_kv"
+    return "decoder_kv"
+
+
+def split_streaming_sessions(sd: Mapping[str, np.ndarray]) -> dict[str, dict[str, np.ndarray]]:
+    """Partition a flat state dict into the reference's five-session layout."""
+    out: dict[str, dict[str, np.ndarray]] = {s: {} for s in STREAMING_SESSIONS}
+    for k, v in sd.items():
+        out[_session_of(k)][k] = np.asarray(v)
+    return out
+
+
+def load_streaming_checkpoint(
+    path: str | os.PathLike,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = None,
+) -> tuple[ms.StreamingMoonshine, StreamingConfig]:
+    """A streaming checkpoint directory -> (model, StreamingConfig).
+
+    Reads, in this order of preference inside ``path``: ``model.safetensors``
+    (the canonical flat state dict), ``model.onnx`` (the same names as graph
+    initializers), or the reference's five session files
+    ``{frontend,encoder,adapter,cross_kv,decoder_kv}.onnx``, whose
+    initializers are merged.  ``streaming_config.json`` (the reference's
+    field set) gives the architecture; without it, the defaults.
+    """
+    from .core.onnx_io import load_onnx
+
+    cfg_path = os.path.join(path, "streaming_config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            cfg = StreamingConfig.from_json(f.read())
+    else:
+        cfg = StreamingConfig()
+    st = os.path.join(path, "model.safetensors")
+    if os.path.exists(st):
+        return import_streaming(st, cfg, dtype, device), cfg
+    single = os.path.join(path, "model.onnx")
+    if os.path.exists(single):
+        return import_streaming(load_onnx(single).initializers, cfg, dtype, device), cfg
+    merged: dict[str, np.ndarray] = {}
+    for session in STREAMING_SESSIONS:
+        p = os.path.join(path, f"{session}.onnx")
+        if os.path.exists(p):
+            merged.update(load_onnx(p).initializers)
+    if not merged:
+        raise FileNotFoundError(
+            f"{path}: no model.safetensors, model.onnx or per-session .onnx files found "
+            "(.ort flatbuffer files are a quantized serving artifact; convert from the "
+            "float sources)")
+    return import_streaming(merged, cfg, dtype, device), cfg

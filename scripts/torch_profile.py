@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's batched offline decode.
+"""Where the time goes in the PyTorch/CUDA port's decodes and streams.
 
-    python3 scripts/torch_profile.py [--decode greedy|beam|speculative|transcriber] [--batch N]
+    python3 scripts/torch_profile.py [--decode greedy|w8a8|beam|speculative|transcriber|streaming] [--batch N]
 
-Profiles the workload of one of ``chip_smoke.py``'s batched phases:
-``chip_smoke.batched_workload`` (greedy, the default; batch 64) or
-``chip_smoke.beam_workload`` (beam 4; batch 128 utterances, the bench's),
-both Moonshine Base, bf16, int8 KV, 9.26 s clips, random weights, decoding
-to the full token cap; or ``chip_smoke.speculative_workload`` (the floor:
-Base verifier, Tiny draft, gamma 4, float KV, batch 32, the bench's); or
-``segment_workload`` (``transcriber``: one segment of the Transcriber's
-main path, Base in float32, B=1).  After a warm-up it traces one encode and one whole
-decode with ``torch.profiler``
-and prints, for each, from that one traced run: its wall time, the summed
-device time of its kernels, the device's idle share over the wall time, and
-the kernels that take the most device time.  Wall times include the
-profiler's own cost on the host.  Needs one CUDA device; the gzipped Chrome
-trace of the decode goes to chiprun_out/torch_profile_<decode>_trace.json.gz.
+Profiles the workload of one of ``chip_smoke.py``'s phases:
+``chip_smoke.batched_workload`` (greedy, the default; batch 64; ``w8a8``:
+the same with the bench's --w8a8 weights) or ``chip_smoke.beam_workload``
+(beam 4; batch 128 utterances, the bench's), all Moonshine Base, bf16, int8
+KV, 9.26 s clips, random weights, decoding to the full token cap; or
+``chip_smoke.speculative_workload`` (the floor: Base verifier, Tiny draft,
+gamma 4, float KV, batch 32, the bench's); or ``segment_workload``
+(``transcriber``: one segment of the Transcriber's main path, Base in
+float32, B=1).  After a warm-up it traces one encode and one whole decode
+with ``torch.profiler`` and prints, for each, from that one traced run: its
+wall time, the summed device time of its kernels, the device's idle share
+over the wall time, and the kernels that take the most device time.
+``streaming`` traces instead one whole stream of ``chip_smoke.py
+[streaming]`` (``medium_streaming``, 10 s in 0.5 s chunks, float32, one
+stream) after a warm-up stream.  Wall times include the profiler's own cost
+on the host.  Needs one CUDA device; the gzipped Chrome trace of the decode
+(or the stream) goes to chiprun_out/torch_profile_<decode>_trace.json.gz.
 """
 
 from __future__ import annotations
@@ -79,26 +82,86 @@ def segment_workload(cfg, seconds: float = 48.0):
     return encode, decode, max_tokens
 
 
+def stream_workload(seconds: float = 10.0, chunk_s: float = 0.5):
+    """One stream of ``chip_smoke.py [streaming]``: ``medium_streaming``
+    with random weights (seed 0) behind the pipeline, VAD off, a synthetic
+    clip fed in ``chunk_s`` chunks with that update interval.  Returns
+    run(), which feeds a fresh stream and stops it."""
+    from chip_smoke import synthetic_clip
+    from moonshine_tpu_torch.core.config import STREAMING_ARCHS, TranscriberOptions, VadOptions
+    from moonshine_tpu_torch.core.tokenizer import BinTokenizer
+    from moonshine_tpu_torch.models import streaming as ms
+    from moonshine_tpu_torch.pipeline.backends import StreamingBackend
+    from moonshine_tpu_torch.pipeline.transcriber import Transcriber
+
+    cfg = STREAMING_ARCHS["medium_streaming"]
+    model = ms.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    vocab = [b"<unk>", b"<s>", b"</s>"] + [f"w{i}".encode() for i in range(3, cfg.vocab_size)]
+    pipeline = Transcriber(StreamingBackend(model, cfg, BinTokenizer(vocab)),
+                           TranscriberOptions(vad=VadOptions(threshold=0.0)))
+    clip = synthetic_clip(seconds, 12)
+    n = int(chunk_s * SAMPLE_RATE)
+
+    def run():
+        stream = pipeline.create_stream(update_interval=chunk_s)
+        stream.start()
+        for i in range(0, len(clip), n):
+            stream.add_audio(clip[i:i + n])
+        stream.stop()
+        pipeline.free_stream(stream)
+
+    return run
+
+
+def trace_stream() -> None:
+    """The ``streaming`` mode: one warm-up stream, then one traced."""
+    run = stream_workload()
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, rows = device_us(prof)
+    print(f"[stream] medium_streaming, 10 s in 0.5 s chunks: wall {wall_us / 1e3:.3f} ms, "
+          f"kernels {busy / 1e3:.3f} ms, device idle share {1 - busy / wall_us:.3f}, "
+          f"{sum(e.count for e in rows)} kernel launches")
+    for e in rows[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    prof.export_chrome_trace(os.path.join("chiprun_out",
+                                          "torch_profile_streaming_trace.json.gz"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--decode", choices=("greedy", "beam", "speculative", "transcriber"),
-                    default="greedy")
+    ap.add_argument("--decode", choices=("greedy", "w8a8", "beam", "speculative", "transcriber",
+                                         "streaming"), default="greedy")
     ap.add_argument("--batch", type=int, default=None,
-                    help="utterances (default 64 for greedy, 128 for beam, 32 for speculative; "
-                         "transcriber takes 1)")
+                    help="utterances (default 64 for greedy and w8a8, 128 for beam, 32 for "
+                         "speculative; transcriber and streaming take 1)")
     args = ap.parse_args()
     resolve_device()  # raises without CUDA
-    args.batch = args.batch or {"greedy": 64, "beam": 128, "speculative": 32,
-                                "transcriber": 1}[args.decode]
+    args.batch = args.batch or {"greedy": 64, "w8a8": 64, "beam": 128, "speculative": 32,
+                                "transcriber": 1, "streaming": 1}[args.decode]
+    if args.decode == "streaming":
+        if args.batch != 1:
+            ap.error("the streaming workload is one stream")
+        trace_stream()
+        print(torch.cuda.get_device_name(0))
+        return 0
     if args.decode == "transcriber":
         if args.batch != 1:
             ap.error("the transcriber workload is one segment")
         encode, decode, max_tokens = segment_workload(BASE)
     elif args.decode == "speculative":
         encode, decode, max_tokens = speculative_workload(BASE, TINY, args.batch)
+    elif args.decode == "beam":
+        encode, decode, max_tokens = beam_workload(BASE, args.batch)
     else:
-        workload = batched_workload if args.decode == "greedy" else beam_workload
-        encode, decode, max_tokens = workload(BASE, args.batch)
+        encode, decode, max_tokens = batched_workload(BASE, args.batch,
+                                                      w8a8=args.decode == "w8a8")
 
     with torch.inference_mode():
         memories = encode()

@@ -137,5 +137,11 @@ def test_buckets_match_jax():
 
 
 def test_main_refuses_weights(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        tls.main([str(tmp_path), "--tokenizer", "none.bin", "--weights", "x.safetensors"])
+    """--weights loads through weights.import_hf_moonshine (the loading is
+    held against JAX in tests/test_torch_api.py), so a checkpoint that is
+    not there is refused, with no random weights in its place."""
+    tok = tmp_path / "tokenizer.bin"
+    tok.write_bytes(TorchTokenizer([b"<unk>", b"<s>", b"</s>", b"w"]).to_bytes())
+    with pytest.raises(FileNotFoundError, match="x.safetensors"):
+        tls.main([str(tmp_path), "--tokenizer", str(tok), "--weights",
+                  str(tmp_path / "x.safetensors"), "--device", "cpu"])

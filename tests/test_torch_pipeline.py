@@ -125,10 +125,22 @@ def test_transcriber_default_vad_runs_on_cpu(tokenizer_path):
     assert all(isinstance(line.text, str) for line in transcript.lines)
 
 
-def test_transcriber_refuses_what_is_not_ported(tokenizer_path):
+def test_transcriber_refuses_what_is_not_ported(tokenizer_path, tmp_path, monkeypatch):
+    """The real-weight VAD, speaker identification and spelling mode are
+    not ported: asking for them raises and names ROADMAP.md; no random VAD
+    stands in for vad_weights=."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.Transcriber(model="tiny_streaming", tokenizer_path=tokenizer_path,
-                         device="cpu").load()
+        tapi.Transcriber(model=TCFG, tokenizer_path=tokenizer_path,
+                         vad_weights=str(tmp_path / "vad.onnx"), device="cpu").load()
+    for option in ("identify_speakers", "spelling_mode"):
+        t = tapi.Transcriber(model=TCFG, tokenizer_path=tokenizer_path, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            t.with_options(**{option: True}).load()
+    # No tokenizer anywhere: neither a path, nor the catalog, nor its default.
+    from moonshine_tpu_torch import catalog
+
+    monkeypatch.setenv(catalog.DEFAULT_CACHE_ENV, str(tmp_path / "empty-cache"))
+    monkeypatch.setattr(catalog, "_REFERENCE_TOKENIZER", str(tmp_path / "absent.bin"))
     with pytest.raises(FileNotFoundError):
         tapi.Transcriber(model=TCFG, device="cpu").load()
 

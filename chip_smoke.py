@@ -30,7 +30,16 @@ resolve both and transcribe as ``with_params`` does, ``transcribe_wav`` as
 ``--w8a8`` mode beside the float run), ``[streaming]``
 (``Transcriber(model="medium_streaming")`` through a stream, 10 s in 0.5 s
 chunks: update latencies and audio-s/s) and ``[streaming reference]``
-(medium_streaming's tokens on the card against the CPU's). Every phase that
+(medium_streaming's tokens on the card against the CPU's). Then the
+multi-stream service: ``[serving]`` (the bench's headline configuration:
+64 medium_streaming streams in 2 cohorts through
+``ShardedStreamingService``, bf16, int8 KV, 0.64 s updates, 15 s segments;
+20 of the bench's 40 update periods: throughput, update and final
+latencies, memory), ``[serving reference]`` (a float32 service's events
+and states on the card against the CPU's), ``[serving vad]`` (TinyVad on
+an in-memory graph of TinyVadCNN's contract, card against CPU, inside a
+service) and ``[streaming bench]`` (``eval/streaming_bench.run_bench``);
+none of them runs a kernel of the repository. Every phase that
 fails ends the run with a non-zero exit. The last two lines of standard
 output are the kernels' JSON summary and the device JSON; a fuller record
 goes to chiprun_out/chip_smoke.json. Without CUDA, or without the rest of
@@ -82,6 +91,15 @@ TOL = {torch.float32: (2e-6, 1e-5), torch.bfloat16: (4e-3, 8e-3)}
 # model's first-step logits differ by 1.1e-6).  A token may then differ
 # where the CPU's two best logits are closer than twice this.
 W8A8_LOGIT_TOL = 0.1
+# [serving reference]: the float32 service's final memory and cross keys,
+# card against CPU, after five updates of a 10-layer window encoder (the
+# single-stream model's memory differs by 7.4e-5 after 800 frames in
+# [streaming reference] on an H100).
+SERVING_REF_TOL = 1e-3
+# [serving vad]: TinyVad's probabilities and mel rings, card against CPU
+# (float32 log-mel and a small CNN; the standardisation divides by the
+# window's std, at least 1e-3).
+VAD_PROB_TOL = 1e-5
 SPEC_BATCH = 32  # the bench's speculative phase: Base verifier, Tiny draft, 32 clips
 BATCHED_SECONDS = 9.26  # the bench's clip: T=384 encoder frames
 SAMPLE_RATE = 16000
@@ -1388,6 +1406,311 @@ def phase_streaming_reference(cfg) -> dict:
     return out
 
 
+# The bench's streaming service (bench.py's _ServiceHarness and its
+# defaults): medium_streaming, 64 streams in 2 cohorts, bf16 compute, int8
+# KV, 128 frames (0.64 s) fed per update, 15 s segments, mem_bucket 3,200,
+# draft_cap 128.  SERVING_UPDATES cuts the bench's 40 update periods to 20.
+SERVING_KW = dict(update_frames=128, mem_bucket=3200, draft_cap=128, max_segment_seconds=15.0)
+SERVING_STREAMS, SERVING_COHORTS, SERVING_UPDATES = 64, 2, 20
+
+
+def serving_audio(n_streams: int, seconds: float = 44.0, seed: int = 14):
+    """The bench's service audio with Gaussian noise at 0.1 in place of its
+    44 s recording: the base clip tiled four times; slot i starts reading
+    at i/S of the base clip.  Returns (tiled audio, offsets)."""
+    base = (np.random.default_rng(seed).standard_normal(int(seconds * SAMPLE_RATE))
+            * 0.1).astype(np.float32)
+    return np.concatenate([base] * 4), [int(i * len(base) / n_streams) for i in range(n_streams)]
+
+
+def serving_workload(n_streams: int, n_cohorts: int):
+    """[serving]'s service: medium_streaming, random weights from seed 0,
+    at the bench's sizes, warmed up, then the bench's stagger: slot i is
+    pre-filled with i/S of a 15 s segment, so that force-splits spread over
+    the updates.  The bench drains that backlog with decoding updates; this
+    drains it with ingest-only ones (the same encodes, no decode), which
+    takes seconds instead of minutes.  Returns (service, feed(slot, n),
+    warm-up seconds)."""
+    from moonshine_tpu_torch.core.config import STREAMING_ARCHS
+    from moonshine_tpu_torch.models import streaming as ms
+    from moonshine_tpu_torch.serving import ShardedStreamingService, StreamingService
+
+    cfg = STREAMING_ARCHS["medium_streaming"]
+    model = ms.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    kw = dict(SERVING_KW, compute_dtype=torch.bfloat16, kv_int8=True)
+    if n_cohorts > 1:
+        svc = ShardedStreamingService(model, cfg, None, n_streams=n_streams, n_cohorts=n_cohorts,
+                                      **kw)
+    else:
+        svc = StreamingService(model, cfg, None, n_streams, **kw)
+    del model
+    warmup_s = svc.warmup()
+    tiled, cursors = serving_audio(n_streams)
+
+    def feed(slot: int, n: int) -> None:
+        svc.add_audio(slot, tiled[cursors[slot]:cursors[slot] + n])
+        cursors[slot] += n
+
+    step = SERVING_KW["update_frames"] * 80
+    period = int(SERVING_KW["max_segment_seconds"] * SAMPLE_RATE)
+    cohorts = svc.cohorts if n_cohorts > 1 else [svc]
+    for i in range(n_streams):
+        feed(i, (i * period // n_streams) // step * step)
+    for _ in range(int(SERVING_KW["max_segment_seconds"] / 0.64) + 4):
+        for c in cohorts:
+            c.update(decode_tick=False)
+    return svc, feed, warmup_s
+
+
+def state_bytes(state) -> dict:
+    """Bytes of a BatchedStreamingState by group (what its shapes hold)."""
+    groups = {"cross K/V": ("k_cross", "v_cross"), "cross scales": ("k_cross_scale", "v_cross_scale"),
+              "self K/V": ("k_self", "v_self"), "self scales": ("k_self_scale", "v_self_scale"),
+              "feats": ("feats",), "memory": ("memory",)}
+    out = {g: sum(getattr(state, f).numel() * getattr(state, f).element_size() for f in fields
+                  if getattr(state, f) is not None) for g, fields in groups.items()}
+    out["total"] = sum(x.numel() * x.element_size() for x in state if x is not None)
+    return out
+
+
+def kernel_launches(ea, bg) -> dict:
+    return {c.__name__: c.launches for c in (ea.encoder_attention_packed, ea.encoder_attention,
+                                             bg.gather_kv_rows, bg.gather_scale_rows)}
+
+
+def reset_launches(ea, bg) -> None:
+    for c in (ea.encoder_attention_packed, ea.encoder_attention, bg.gather_kv_rows,
+              bg.gather_scale_rows):
+        c.launches = 0
+
+
+def phase_serving(card: str) -> dict:
+    """The bench's headline configuration on the card: 64 medium_streaming
+    streams in 2 cohorts through ShardedStreamingService, bf16, int8 KV,
+    SERVING_UPDATES update periods of 0.64 s, each cohort ticked in turn
+    after its slots are fed (bench.py's timed loop)."""
+    from moonshine_tpu_torch.core.config import STREAMING_ARCHS
+    from moonshine_tpu_torch.models import streaming_batch as sb
+
+    S, K = SERVING_STREAMS, SERVING_COHORTS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_setup = time.perf_counter()
+    svc, feed, warmup_s = serving_workload(S, K)
+    setup_s = time.perf_counter() - t_setup
+    step = SERVING_KW["update_frames"] * 80
+    per = S // K
+    update_ms, final_ms, events_n = [], [], 0
+    t0 = time.perf_counter()
+    for _ in range(SERVING_UPDATES):
+        for c in range(K):
+            for i in range(c * per, (c + 1) * per):
+                feed(i, step)
+            t1 = time.perf_counter()
+            events = svc.update(cohort=c)
+            update_ms.append((time.perf_counter() - t1) * 1e3)
+            events_n += len(events)
+            final_ms += [e.latency_ms for e in events if e.is_final]
+    wall = time.perf_counter() - t0
+    audio_s = S * SERVING_UPDATES * step / SAMPLE_RATE
+    peak = torch.cuda.max_memory_allocated()
+    # The state's bytes as its shapes give them, against the allocator's
+    # count for one more cohort's state allocated alone.
+    reckoned = state_bytes(svc.cohorts[0].state)
+    before = torch.cuda.memory_allocated()
+    extra = sb.init_batch_state(STREAMING_ARCHS["medium_streaming"], per, dtype=torch.bfloat16,
+                                mem_cap=SERVING_KW["mem_bucket"], kv_int8=True, device="cuda")
+    allocated = torch.cuda.memory_allocated() - before
+    del extra
+    out = {"streams": S, "cohorts": K, "updates": SERVING_UPDATES, "bench_updates": 40,
+           "setup_s": setup_s, "warmup_s": warmup_s, "wall_s": wall, "audio_s": audio_s,
+           "audio_s_per_s": audio_s / wall, "update_ms": update_ms,
+           "update_ms_p50": float(np.percentile(update_ms, 50)),
+           "update_ms_p95": float(np.percentile(update_ms, 95)),
+           "final_ms_p50": float(np.percentile(final_ms, 50)) if final_ms else None,
+           "n_finals": len(final_ms), "events": events_n, "peak_bytes": peak,
+           "state_bytes_per_cohort": reckoned, "state_bytes_allocated": allocated}
+    log(f"  cut: {SERVING_UPDATES} update periods (the bench runs 40); the stagger's pre-fill "
+        "drained with ingest-only updates (the bench decodes them)")
+    final_p50 = "none" if not final_ms else f"{out['final_ms_p50']:.1f} ms"
+    log(f"  medium_streaming, {S} streams in {K} cohorts, bf16, int8 KV, 0.64 s updates: warm-up "
+        f"{warmup_s:.2f} s (set-up {setup_s:.2f} s); {out['audio_s_per_s']:.2f} audio-s/s; "
+        f"update wall p50 {out['update_ms_p50']:.1f} ms, p95 {out['update_ms_p95']:.1f} ms; "
+        f"final-update latency p50 {final_p50}; {len(final_ms)} finals, {events_n} events; "
+        f"peak allocated {peak / 1e9:.3f} GB on {card}")
+    log("  state per cohort of " + f"{per} streams: " + ", ".join(
+        f"{k} {v / 1e6:.1f} MB" for k, v in reckoned.items())
+        + f"; the allocator took {allocated / 1e6:.1f} MB for one more, on {card}")
+    if not update_ms or not events_n or abs(allocated - reckoned["total"]) > 0.01 * allocated:
+        raise SystemExit("the service produced no event, or its state is not the size reckoned")
+    del svc
+    torch.cuda.empty_cache()
+    return out
+
+
+def _service_log(events) -> list:
+    return [(e.slot, e.segment_id, e.text, e.is_final, round(e.start_time, 6),
+             round(e.end_time, 6)) for e in events]
+
+
+def phase_serving_reference(cfg, card: str) -> dict:
+    """Four medium_streaming streams in one float32 StreamingService on the
+    card and on the CPU (the same weights, from seed 0, and audio), five
+    update periods, the last closing every slot: the events, and so the
+    tokens (no tokenizer: a text is its token list), must be equal, and
+    the final memory and cross keys within SERVING_REF_TOL."""
+    from moonshine_tpu_torch.models import streaming as ms
+    from moonshine_tpu_torch.serving import StreamingService
+
+    S = 4
+    model = ms.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    tiled, offsets = serving_audio(S)
+    step = SERVING_KW["update_frames"] * 80
+    runs = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        svc = StreamingService(m, cfg, None, S, device=dev, **SERVING_KW)
+        t0 = time.perf_counter()
+        log_ = []
+        for u in range(5):
+            for i in range(S):
+                if u == 0:
+                    svc.open_slot(i)
+                svc.add_audio(i, tiled[offsets[i] + u * step:offsets[i] + (u + 1) * step])
+                if u == 4:
+                    svc.close_slot(i)
+            log_.append(_service_log(svc.update()))
+        runs[dev] = (log_, svc.state, time.perf_counter() - t0)
+    (g_log, g_state, g_s), (c_log, c_state, c_s) = runs["cuda"], runs["cpu"]
+    errs = {f: float((getattr(g_state, f).cpu() - getattr(c_state, f)).abs().max())
+            for f in ("memory", "k_cross")}
+    finals = sum(e[3] for u in c_log for e in u)
+    same = g_log == c_log
+    log(f"  medium_streaming, {S} streams, float32, 5 updates of 0.64 s (card {g_s:.2f} s, cpu "
+        f"{c_s:.2f} s): events equal {same} ({sum(map(len, c_log))} events, {finals} finals); "
+        f"memory max_abs_err {errs['memory']:.3e}, k_cross {errs['k_cross']:.3e} "
+        f"(tolerance {SERVING_REF_TOL:g}) on {card}")
+    out = {"events_equal": same, "events": sum(map(len, c_log)), "finals": finals,
+           "max_abs_err": errs, "card_s": g_s, "cpu_s": c_s}
+    if not same:
+        for u, (a, b) in enumerate(zip(g_log, c_log)):
+            if a != b:
+                log(f"    first difference at update {u}: card {a[:2]} cpu {b[:2]}")
+                break
+        raise SystemExit("the service's events on the card differ from the CPU's")
+    if finals != S or max(errs.values()) > SERVING_REF_TOL:
+        raise SystemExit("the service's final states on the card and the CPU disagree")
+    return out
+
+
+def tinyvad_graph(seed: int = 0):
+    """An in-memory ONNX graph of TinyVadCNN's contract (the real export is
+    not in the repository): input ``log_mel`` [N, 1, 32, 16], output
+    ``logit`` [N, 1]; Conv, Relu, MaxPool, Flatten, Gemm with seeded
+    weights.  The first convolution's bias (-0.05) is a dead zone that maps
+    a window of silence (standardised to within a few 1e-3 of zero) to the
+    Gemm's bias exactly, and the Gemm's positive weights give any sound a
+    high probability.  The port's CPU tests run the same graph."""
+    from moonshine_tpu_torch.core.onnx_io import OnnxGraph, OnnxNode
+
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+
+    inits = {"c1_w": w(8, 1, 3, 3), "c1_b": np.full(8, -0.05, np.float32),
+             "c2_w": w(16, 8, 3, 3), "c2_b": np.zeros(16, np.float32),
+             "fc_w": np.abs(w(1, 16 * 8 * 4)) * 4.0, "fc_b": np.asarray([-3.0], np.float32)}
+    conv = {"kernel_shape": [3, 3], "pads": [1, 1, 1, 1]}
+    pool = {"kernel_shape": [2, 2], "strides": [2, 2]}
+    nodes = [OnnxNode("Conv", ["log_mel", "c1_w", "c1_b"], ["h1"], attrs=conv),
+             OnnxNode("Relu", ["h1"], ["r1"]), OnnxNode("MaxPool", ["r1"], ["p1"], attrs=pool),
+             OnnxNode("Conv", ["p1", "c2_w", "c2_b"], ["h2"], attrs=conv),
+             OnnxNode("Relu", ["h2"], ["r2"]), OnnxNode("MaxPool", ["r2"], ["p2"], attrs=pool),
+             OnnxNode("Flatten", ["p2"], ["f"], attrs={"axis": 1}),
+             OnnxNode("Gemm", ["f", "fc_w", "fc_b"], ["logit"], attrs={"transB": 1})]
+    return OnnxGraph(nodes=nodes, initializers=inits, inputs=[("log_mel", ["batch", 1, 32, 16])],
+                     outputs=[("logit", ["batch", 1])])
+
+
+def phase_serving_vad(cfg, card: str) -> dict:
+    """TinyVad over the contract graph, card against CPU: the masked
+    batched probabilities of two successive calls (uneven valid counts,
+    the rings carried) within VAD_PROB_TOL; then a float32 StreamingService
+    with that VAD over a voiced stream (1 s of noise, then silence) and a
+    silent one, on the card and on the CPU: the same segments and the same
+    event times."""
+    from moonshine_tpu_torch.models import streaming as ms
+    from moonshine_tpu_torch.models.vad import TinyVad
+    from moonshine_tpu_torch.serving import StreamingService
+
+    graph = tinyvad_graph(0)
+    vads = {dev: TinyVad(graph, dev) for dev in ("cuda", "cpu")}
+    rng = np.random.default_rng(15)
+    states = {dev: v.init_state(4) for dev, v in vads.items()}
+    prob_err = 0.0
+    for counts in ([16, 7, 0, 12], [3, 16, 9, 1]):
+        hops = torch.from_numpy((rng.standard_normal((4, 16, 512)) * 0.1).astype(np.float32))
+        probs = {}
+        for dev, v in vads.items():
+            probs[dev], states[dev] = v.predict_hops_masked(hops.to(dev), np.asarray(counts),
+                                                            states[dev])
+        valid = torch.arange(16)[None, :] < torch.as_tensor(counts)[:, None]
+        prob_err = max(prob_err, float((probs["cuda"].cpu() - probs["cpu"])[valid].abs().max()))
+    ring_err = float((states["cuda"].cols.cpu() - states["cpu"].cols).abs().max())
+
+    model = ms.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    models = {"cuda": model, "cpu": copy.deepcopy(model).to("cpu")}
+    voiced = np.concatenate([np.random.default_rng(16).standard_normal(16000) * 0.3,
+                             np.zeros(32000)]).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        svc = StreamingService(models[dev], cfg, None, 2, vad=vads[dev], vad_threshold=0.5,
+                               device=dev, **SERVING_KW)
+        for i in range(2):
+            svc.open_slot(i)
+        events = []
+        for u in range(12):
+            svc.add_audio(0, voiced[u * 4000:(u + 1) * 4000])
+            svc.add_audio(1, np.zeros(4000, np.float32))
+            events += [(e.slot, e.segment_id, e.is_final, round(e.start_time, 6),
+                        round(e.end_time, 6)) for e in svc.update()]
+        segments = [[(round(g.start_time, 6), round(g.end_time, 6), g.is_complete)
+                     for g in seg.segments] for seg in svc._segmenters]
+        runs[dev] = (segments, events)
+    same = runs["cuda"] == runs["cpu"]
+    segments, events = runs["cpu"]
+    log(f"  TinyVad (contract graph), card against cpu: probabilities max_abs_err {prob_err:.3e}, "
+        f"rings {ring_err:.3e} (tolerance {VAD_PROB_TOL:g}); service segments and event times "
+        f"equal {same}: voiced stream {segments[0]}, silent stream {segments[1]}, "
+        f"{sum(e[2] for e in events)} finals; on {card}")
+    if prob_err > VAD_PROB_TOL or ring_err > VAD_PROB_TOL or not same:
+        raise SystemExit("TinyVad or the VAD service on the card disagrees with the CPU")
+    if len(segments[0]) != 1 or not segments[0][0][2] or segments[1]:
+        raise SystemExit("the VAD service did not cut one segment from the voiced stream alone")
+    return {"prob_max_abs_err": prob_err, "ring_max_abs_err": ring_err, "segments": segments,
+            "finals": sum(e[2] for e in events)}
+
+
+def phase_streaming_bench(root: str, card: str) -> dict:
+    """The port's eval/streaming_bench.run_bench at the bench's service
+    size (medium_streaming, 64 streams in 2 cohorts) for 10 update periods
+    of its default 0.5 s, over a synthetic 44 s wav (Gaussian noise at 0.1)
+    in place of the reference recording."""
+    from moonshine_tpu_torch.audio.wav import save_wav
+    from moonshine_tpu_torch.eval.streaming_bench import run_bench
+
+    path = os.path.join(root, "noise_16k.wav")
+    save_wav(path, serving_audio(1)[0][:44 * SAMPLE_RATE], SAMPLE_RATE)
+    torch.cuda.empty_cache()
+    out = run_bench(model="medium_streaming", n_streams=64, n_cohorts=2, n_updates=10,
+                    audio_path=path)
+    log(f"  {json.dumps(out)} on {card}")
+    if out["update_ms_p50"] <= 0 or out["n_updates"] != 10:
+        raise SystemExit("the streaming bench did not run")
+    return out
+
+
 def gather_entry(name: str, replaces: str, launches: int, max_err: float, t: dict,
                  extra: dict | None = None) -> dict:
     return {"name": name, "route": "cuda", "source": "moonshine_tpu_torch/csrc/beam_gather.cu",
@@ -1492,6 +1815,26 @@ def main() -> int:
         streaming = phase_streaming(tok_path, card)
         log("[streaming reference]")
         streaming_ref = phase_streaming_reference(STREAMING_ARCHS["medium_streaming"])
+        # The service's paths run no kernel of the repository (the JAX
+        # service is XLA code): each one's counts are read over its own run.
+        serving_launches = {}
+        log("[serving] ShardedStreamingService, the bench's headline configuration")
+        reset_launches(ea, bg)
+        serving = phase_serving(card)
+        serving_launches["serving"] = kernel_launches(ea, bg)
+        log("[serving reference]")
+        reset_launches(ea, bg)
+        serving_ref = phase_serving_reference(STREAMING_ARCHS["medium_streaming"], card)
+        serving_launches["serving reference"] = kernel_launches(ea, bg)
+        log("[serving vad]")
+        reset_launches(ea, bg)
+        serving_vad = phase_serving_vad(STREAMING_ARCHS["medium_streaming"], card)
+        serving_launches["serving vad"] = kernel_launches(ea, bg)
+        log("[streaming bench] eval/streaming_bench.run_bench")
+        reset_launches(ea, bg)
+        streaming_bench = phase_streaming_bench(tmp, card)
+        serving_launches["streaming bench"] = kernel_launches(ea, bg)
+        log(f"  kernel launches on the service's paths: {serving_launches}")
 
     k3, k4 = gather_times["K3 int8"], gather_times["K4"]
     k3_bf16 = gather_times["K3 bf16"]
@@ -1515,6 +1858,11 @@ def main() -> int:
                   "w8a8 batched": w8a8_batched["k1_launches"],
                   "batched beam": beam["launches"]["encoder_attention_packed"],
                   "sharded path": sharded["launches"]["encoder_attention_packed"]}
+
+    def on_service_paths(kernel: str) -> dict:
+        return {path: counts[kernel] for path, counts in serving_launches.items()}
+
+    k1_by_path.update(on_service_paths("encoder_attention_packed"))
     kernels = [{
         "name": "encoder_attention_packed", "route": "cuda",
         "source": "moonshine_tpu_torch/csrc/encoder_attention.cu",
@@ -1529,7 +1877,10 @@ def main() -> int:
         "name": "encoder_attention", "route": "cuda",
         "source": "moonshine_tpu_torch/csrc/encoder_attention.cu",
         "replaces": "moonshine_tpu/ops/encoder_attention.py:43",
-        "launches": sharded["launches"]["encoder_attention"], "max_abs_err": hm_err,
+        "launches": sharded["launches"]["encoder_attention"],
+        "launches_by_path": {"sharded path": sharded["launches"]["encoder_attention"],
+                             **on_service_paths("encoder_attention")},
+        "max_abs_err": hm_err,
         "tol": {k: list(TOL[getattr(torch, k)]) for k in ("float32", "bfloat16")},
         "ms": hm_times["base"]["kernel_ms"], "kernel_ms": hm_times["base"]["kernel_ms"],
         "plain_ms": hm_times["base"]["plain_ms"], "library_ms": hm_times["base"]["library_ms"],
@@ -1543,9 +1894,13 @@ def main() -> int:
     }, gather_entry("gather_kv_rows", "moonshine_tpu/ops/beam_gather.py:30",
                     beam["launches"]["gather_kv_rows"], gather_err, k3,
                     {"bf16_ms": k3_bf16["kernel_ms"], "bf16_plain_ms": k3_bf16["plain_ms"],
-                     "bf16_bound_ms": k3_bf16["bound_ms"]}),
+                     "bf16_bound_ms": k3_bf16["bound_ms"],
+                     "launches_by_path": {"batched beam": beam["launches"]["gather_kv_rows"],
+                                          **on_service_paths("gather_kv_rows")}}),
         gather_entry("gather_scale_rows", "moonshine_tpu/ops/beam_gather.py:76",
-                     beam["launches"]["gather_scale_rows"], gather_err, k4)]
+                     beam["launches"]["gather_scale_rows"], gather_err, k4,
+                     {"launches_by_path": {"batched beam": beam["launches"]["gather_scale_rows"],
+                                           **on_service_paths("gather_scale_rows")}})]
     record = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "kernel_times": times, "hm_times": hm_times, "f32_times": f32_times,
               "batch_independence": batch_independence, "sass": sass,
@@ -1555,7 +1910,9 @@ def main() -> int:
               "batched": batched, "beam": beam, "sharded": sharded,
               "speculative": speculative, "eval": evaluation, "w8a8_main_path": w8a8_main,
               "checkpoint": checkpoint, "w8a8_batched": w8a8_batched, "streaming": streaming,
-              "streaming_reference": streaming_ref,
+              "streaming_reference": streaming_ref, "serving": serving,
+              "serving_reference": serving_ref, "serving_vad": serving_vad,
+              "streaming_bench": streaming_bench, "serving_launches": serving_launches,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

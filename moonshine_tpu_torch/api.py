@@ -22,8 +22,11 @@ at random from ``seed``.  The tokenizer comes from ``tokenizer_path=``, the
 catalog, or the catalog's default tokenizer.  Both model families run:
 the offline models (``ARCHS``) and the streaming ones (``STREAMING_ARCHS``).
 Word timestamps (``with_options(word_timestamps=True)``) come from the
-decoder's cross-attention.  The real-weight VAD (``vad_weights=``) and
-speaker identification are not ported yet (ROADMAP.md) and raise.
+decoder's cross-attention.  ``vad_weights=`` names a TinyVadCNN ONNX
+export, which then gives the VAD's speech probabilities (as long as the
+VAD threshold is above 0); otherwise the random-weight VAD of ``seed``
+does.  Speaker identification and spelling are not ported yet (ROADMAP.md)
+and raise.
 """
 
 from __future__ import annotations
@@ -115,10 +118,6 @@ class Transcriber:
         from .models import streaming as ms
         from .pipeline.backends import OfflineBackend, StreamingBackend
 
-        if self._vad_weights is not None:
-            raise NotImplementedError(
-                "vad_weights= needs the real-weight TinyVad, which is not ported yet "
-                "(ROADMAP.md queue 1, item 10b)")
         self.device = resolve_device(self._device)
         tokenizer = self._load_tokenizer()
         generator = torch.Generator().manual_seed(self._seed)
@@ -200,6 +199,11 @@ class Transcriber:
             return None  # always-voice: the segmenter short-circuits
         from .models import vad as vad_mod
 
+        if self._vad_weights is not None:
+            # Real TinyVadCNN weights (an ONNX export, such as the
+            # reference's micro/models/tinyvad_cnn_speech_mel.onnx).
+            return vad_mod.TinyVad.from_onnx(str(self._vad_weights),
+                                             self.device).hop_prob_fn()
         params = vad_mod.init_params(torch.Generator().manual_seed(self._seed + 1),
                                      device=self.device)
         state = [vad_mod.init_state(1, device=self.device)]

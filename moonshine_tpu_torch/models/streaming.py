@@ -265,13 +265,15 @@ def frontend_step(model: StreamingMoonshine, cfg: StreamingConfig, chunk: torch.
 # =========================================================================
 
 def _encoder_layer(cfg: StreamingConfig, h, lp: EncoderLayer, cos, sin, mask):
+    """One encoder layer over windows h [B, W, e] (rotary tables [W, half],
+    a key mask broadcastable to [B, 1, 1, W])."""
     x = layer_norm(lp.ln1, h)
     a = lp.attn
-    q = apply_rotary(_split_heads(dense(a.q, x)[None], cfg.nheads)[0], cos, sin)  # [W, H, hd]
-    k = apply_rotary(_split_heads(dense(a.k, x)[None], cfg.nheads)[0], cos, sin)
-    v = _split_heads(dense(a.v, x)[None], cfg.nheads)[0]
-    o = _attention(q[None], k[None], v[None], mask)[0]
-    h = h + dense(a.o, o.reshape(o.shape[0], -1))
+    q = apply_rotary(_split_heads(dense(a.q, x), cfg.nheads), cos, sin)  # [B, W, H, hd]
+    k = apply_rotary(_split_heads(dense(a.k, x), cfg.nheads), cos, sin)
+    v = _split_heads(dense(a.v, x), cfg.nheads)
+    o = _attention(q, k, v, mask)
+    h = h + dense(a.o, o.flatten(2))
     x = layer_norm(lp.ln2, h)
     return h + dense(lp.mlp.fc2, ACTIVATIONS["gelu"](dense(lp.mlp.fc1, x)))
 
@@ -282,7 +284,7 @@ def _sinusoid(pos: torch.Tensor, dim: int) -> torch.Tensor:
     # tensor copied from the host would synchronise the stream).
     log_base = torch.full((), 10000.0, device=pos.device).log()
     freqs = torch.exp(-log_base * torch.arange(half, device=pos.device) / half)
-    angles = pos.float()[:, None] * freqs[None, :]
+    angles = pos.float()[..., None] * freqs  # [..., half]
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
@@ -297,14 +299,14 @@ def encode_step(model: StreamingMoonshine, cfg: StreamingConfig, state: Streamin
     win_start = max(state.enc_emitted - cfg.left_context_frames, 0)
     win_valid = min(state.feat_count - win_start, ENC_WIN)
     start = _read_start(win_start, ENC_WIN, state.feats.shape[0])
-    h = dense(model.encoder.in_proj, state.feats[start:start + ENC_WIN])  # [ENC_WIN, e]
+    h = dense(model.encoder.in_proj, state.feats[None, start:start + ENC_WIN])  # [1, W, e]
 
     positions = torch.arange(ENC_WIN, device=dev)
     cos, sin = rotary_tables(positions, cfg.head_dim - (cfg.head_dim % 2), cfg.rope_theta)
     mask = (positions < win_valid)[None, None, None, :]  # key mask
     for lp in model.encoder.layers:
         h = _encoder_layer(cfg, h, lp, cos, sin, mask)
-    h = layer_norm(model.encoder.norm, h)
+    h = layer_norm(model.encoder.norm, h[0])
 
     # The newly stable frames, window-relative.  With a left context above
     # ENC_WIN - ENC_STEP frames (enc_depth > 8) this read clamps, as JAX's.

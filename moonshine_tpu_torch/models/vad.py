@@ -1,12 +1,17 @@
 """Silero-style voice-activity model, in PyTorch.
 
-Counterpart of the JAX package's ``models/vad.py`` (the random-weight model
-that ``Transcriber`` loads; the real-weight ``TinyVad`` ONNX path is not
-ported yet): 512-sample hops at 16 kHz with 64 samples of leading context,
-an STFT-magnitude frontend (a DFT-basis convolution), four strided conv
-blocks, a 128-wide LSTM cell and a sigmoid head, one speech probability per
-hop.  The conv stack runs batched over every hop of an update; the LSTM
-recurrence is a Python loop over hops where JAX uses ``lax.scan``.
+Counterpart of the JAX package's ``models/vad.py``.  Two models:
+
+- the random-weight model that ``Transcriber`` loads by default:
+  512-sample hops at 16 kHz with 64 samples of leading context, an
+  STFT-magnitude frontend (a DFT-basis convolution), four strided conv
+  blocks, a 128-wide LSTM cell and a sigmoid head, one speech probability
+  per hop.  The conv stack runs batched over every hop of an update; the
+  LSTM recurrence is a Python loop over hops where JAX uses ``lax.scan``;
+- ``TinyVad``, the real-weight TinyVadCNN of an ONNX export (a binary
+  speech classifier over a ``[B, 1, 32, 16]`` streaming log-mel window,
+  one 512-sample hop per frame), run by the port's ONNX interpreter
+  (``ops/onnx_graph.py``), batched over hops and streams.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
+from ..ops.mel import mel_columns
+from ..ops.onnx_graph import execute
 from .layers import Conv1d, Dense, dense, dense_init
 
 SAMPLE_RATE = 16000
@@ -153,3 +160,92 @@ def predict_hops(p: Vad, hops: torch.Tensor, state: VadState) -> tuple[torch.Ten
         h, c = _lstm_cell(p.lstm, enc[:, i], h, c)
         probs.append(torch.sigmoid(dense(p.head, h))[..., 0])
     return torch.stack(probs, dim=1), VadState(h=h, c=c, context=hops[:, -1, -CONTEXT_SAMPLES:])
+
+
+# =========================================================================
+# Real-weight path: TinyVadCNN from an ONNX export (the reference's
+# micro/models/tinyvad_cnn_speech_mel.onnx: input ``log_mel`` [B, 1, 32,
+# 16], output one speech logit per window; run once per 32 ms hop).
+# =========================================================================
+
+TINYVAD_N_MELS = 32
+TINYVAD_WINDOW_FRAMES = 16
+
+
+class TinyVadState(NamedTuple):
+    """Ring of the previous window_frames-1 log-mel columns, initialised to
+    log(eps) silence."""
+
+    cols: torch.Tensor  # [B, 15, 32]
+
+
+class TinyVad:
+    """TinyVadCNN with real weights, batched over hops AND streams: mel
+    columns for every hop (one product), sliding 16-frame windows (a
+    strided view), per-window standardisation, one batched CNN pass."""
+
+    def __init__(self, graph, device: str | torch.device | None = None):
+        self.graph = graph
+        self.device = resolve_device(device)
+        (self._input_name, _), = graph.inputs
+
+    @classmethod
+    def from_onnx(cls, path: str, device: str | torch.device | None = None) -> "TinyVad":
+        from ..core.onnx_io import load_onnx
+
+        return cls(load_onnx(path), device)
+
+    def init_state(self, batch: int = 1) -> TinyVadState:
+        log_eps = float(np.log(1e-6))
+        return TinyVadState(cols=torch.full(
+            (batch, TINYVAD_WINDOW_FRAMES - 1, TINYVAD_N_MELS), log_eps,
+            dtype=torch.float32, device=self.device))
+
+    def _run(self, hops: torch.Tensor, cols: torch.Tensor):
+        """(probs [B, H], the column ring extended by every hop [B, 15+H, 32])."""
+        b, n_hops, _ = hops.shape
+        full = torch.cat([cols, mel_columns(hops)], dim=1)  # [B, 15+H, 32]
+        win = TINYVAD_WINDOW_FRAMES
+        x = full.unfold(1, win, 1)  # [B, H, 32 mels, 16 frames]
+        mean = x.mean(dim=(2, 3), keepdim=True)
+        std = x.std(dim=(2, 3), keepdim=True, correction=1)
+        x = (x - mean) / torch.clamp(std, min=1e-3)
+        x = x.reshape(b * n_hops, 1, TINYVAD_N_MELS, win)
+        logit = execute(self.graph, {self._input_name: x})[0]  # [B*H, 1]
+        return torch.sigmoid(logit).reshape(b, n_hops), full
+
+    @torch.inference_mode()
+    def predict_hops(self, hops: torch.Tensor,
+                     state: TinyVadState) -> tuple[torch.Tensor, TinyVadState]:
+        """[B, H, 512] hops -> ([B, H] speech probabilities, new state)."""
+        probs, full = self._run(hops, state.cols)
+        return probs, TinyVadState(cols=full[:, -(TINYVAD_WINDOW_FRAMES - 1):].contiguous())
+
+    @torch.inference_mode()
+    def predict_hops_masked(self, hops: torch.Tensor, n_valid,
+                            state: TinyVadState) -> tuple[torch.Tensor, TinyVadState]:
+        """[B, H, 512] padded hops with per-stream valid counts [B].
+
+        probs[b, i] is meaningful for i < n_valid[b]; each stream's ring
+        advances by exactly its valid count: the 15 columns from row
+        n_valid of the extended ring, the start clamped to [0, H] as JAX's
+        ``dynamic_slice`` clamps it."""
+        probs, full = self._run(hops, state.cols)
+        n_hops = hops.shape[1]
+        keep = TINYVAD_WINDOW_FRAMES - 1
+        start = torch.as_tensor(n_valid, device=full.device).long().clamp(0, n_hops)
+        rows = start[:, None] + torch.arange(keep, device=full.device)[None, :]
+        cols = full.gather(1, rows[..., None].expand(-1, -1, TINYVAD_N_MELS))
+        return probs, TinyVadState(cols=cols)
+
+    def hop_prob_fn(self):
+        """Stateful [H, 512] -> [H] closure for pipeline.VadSegmenter."""
+        state = self.init_state(1)
+
+        def fn(hops: np.ndarray) -> np.ndarray:
+            nonlocal state
+            x = torch.from_numpy(np.asarray(hops, np.float32))[None].to(self.device)
+            probs, state = self.predict_hops(x, state)
+            return probs[0].cpu().numpy()
+
+        return fn

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's decodes and streams.
 
-    python3 scripts/torch_profile.py [--decode greedy|w8a8|beam|speculative|transcriber|streaming] [--batch N]
+    python3 scripts/torch_profile.py [--decode greedy|w8a8|beam|speculative|transcriber|streaming|serving] [--batch N]
 
 Profiles the workload of one of ``chip_smoke.py``'s phases:
 ``chip_smoke.batched_workload`` (greedy, the default; batch 64; ``w8a8``:
@@ -17,8 +17,14 @@ wall time, the summed device time of its kernels, the device's idle share
 over the wall time, and the kernels that take the most device time.
 ``streaming`` traces instead one whole stream of ``chip_smoke.py
 [streaming]`` (``medium_streaming``, 10 s in 0.5 s chunks, float32, one
-stream) after a warm-up stream.  Wall times include the profiler's own cost
-on the host.  Needs one CUDA device; the gzipped Chrome trace of the decode
+stream) after a warm-up stream.  ``serving`` traces one cohort (32 streams)
+of ``chip_smoke.py [serving]`` (``medium_streaming``, bf16, int8 KV, 0.64 s
+updates, 15 s segments, the bench's staggered pre-fill): after three
+untraced decoding updates, one decoding update and one ingest-only update,
+each with its decoder calls counted, the launches a decoder call and the
+share of device time in dtype copies (``direct_copy_kernel``: mostly the
+float upcasts of the int8 caches in ``ops/int8_kv.attention_dm_q8``).
+Wall times include the profiler's own cost on the host.  Needs one CUDA device; the gzipped Chrome trace of the decode
 (or the stream) goes to chiprun_out/torch_profile_<decode>_trace.json.gz.
 """
 
@@ -134,17 +140,77 @@ def trace_stream() -> None:
                                           "torch_profile_streaming_trace.json.gz"))
 
 
+def trace_serving() -> None:
+    """The ``serving`` mode: one cohort of chip_smoke.py [serving]."""
+    from chip_smoke import SERVING_COHORTS, SERVING_KW, SERVING_STREAMS, serving_workload
+    from moonshine_tpu_torch.models import streaming_batch as sb
+
+    per = SERVING_STREAMS // SERVING_COHORTS
+    svc, feed, _ = serving_workload(per, 1)
+    step = SERVING_KW["update_frames"] * 80
+
+    def tick(decode: bool = True):
+        for i in range(per):
+            feed(i, step)
+        return svc.update(decode_tick=decode)
+
+    for _ in range(3):
+        tick()
+    calls = [0]
+    inner = sb._decode_step_batch
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    sb._decode_step_batch = counted
+    launches = {}
+    for name, decode in (("decoding update", True), ("ingest-only update", False)):
+        calls[0] = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tick(decode)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, rows = device_us(prof)
+        launches[name] = sum(e.count for e in rows)
+        copies = sum(e.self_device_time_total for e in rows if "direct_copy" in e.key)
+        print(f"[{name}] medium_streaming, {per} streams, bf16, int8 KV: wall "
+              f"{wall_us / 1e3:.3f} ms, kernels {busy / 1e3:.3f} ms, device idle share "
+              f"{1 - busy / wall_us:.3f}, {launches[name]} kernel launches, {calls[0]} decoder "
+              f"calls; dtype copies {copies / 1e3:.3f} ms ({copies / max(busy, 1):.1%} of device "
+              "time)")
+        for e in rows[:12]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+        if decode:
+            decoder_calls = calls[0]
+            os.makedirs("chiprun_out", exist_ok=True)
+            prof.export_chrome_trace(os.path.join("chiprun_out",
+                                                  "torch_profile_serving_trace.json.gz"))
+    sb._decode_step_batch = inner
+    print(f"[serving] launches a decoder call (the decoding update's beyond the ingest-only "
+          f"one's): {(launches['decoding update'] - launches['ingest-only update']) / max(decoder_calls, 1):.1f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--decode", choices=("greedy", "w8a8", "beam", "speculative", "transcriber",
-                                         "streaming"), default="greedy")
+                                         "streaming", "serving"), default="greedy")
     ap.add_argument("--batch", type=int, default=None,
                     help="utterances (default 64 for greedy and w8a8, 128 for beam, 32 for "
-                         "speculative; transcriber and streaming take 1)")
+                         "speculative; transcriber and streaming take 1; serving takes "
+                         "one cohort of 32 streams)")
     args = ap.parse_args()
     resolve_device()  # raises without CUDA
     args.batch = args.batch or {"greedy": 64, "w8a8": 64, "beam": 128, "speculative": 32,
-                                "transcriber": 1, "streaming": 1}[args.decode]
+                                "transcriber": 1, "streaming": 1, "serving": 32}[args.decode]
+    if args.decode == "serving":
+        if args.batch != 32:
+            ap.error("the serving workload is one cohort of 32 streams")
+        trace_serving()
+        print(torch.cuda.get_device_name(0))
+        return 0
     if args.decode == "streaming":
         if args.batch != 1:
             ap.error("the streaming workload is one stream")

@@ -2,7 +2,8 @@
 CPU: the constructor's order, catalog resolution (weights and tokenizer,
 with the default-tokenizer fallback), HF checkpoint import, the
 safetensors reader, ``transcribe_wav``, streams and the implicit default
-stream, the run and API logs, and ``MicTranscriber``'s refusal.
+stream, the real-weight VAD of ``vad_weights=``, the run and API logs, and
+``MicTranscriber``'s refusal.
 
 Tolerances: logits against HF ``transformers`` to atol 2e-4, rtol 1e-3
 (tests/test_hf_parity.py's); imported parameters and read tensors must be
@@ -32,6 +33,8 @@ from moonshine_tpu_torch.core import config as tconfig
 from moonshine_tpu_torch.core.config import MoonshineArchConfig as TorchArchConfig
 from moonshine_tpu_torch.models import moonshine as tm
 from moonshine_tpu_torch.pipeline.transcriber import FLAG_FORCE_UPDATE
+
+from chip_smoke import tinyvad_graph
 
 transformers = pytest.importorskip("transformers")
 
@@ -312,6 +315,29 @@ def test_streams_match_jax(catalog_cache):
         events.append((seen, _lines(t.stop())))
         assert t._default_stream is None
     assert events[1] == events[0]
+
+
+def test_vad_weights_transcribe_as_jax(catalog_cache, monkeypatch, tmp_path):
+    """``vad_weights=`` runs TinyVad on the named export (both packages'
+    ``load_onnx`` return the same in-memory graph of TinyVadCNN's
+    contract): the same segments and lines as JAX's, at the default VAD
+    threshold."""
+    from moonshine_tpu.core import onnx_io as jonnx
+    from moonshine_tpu_torch.core import onnx_io as tonnx
+
+    graph = tinyvad_graph(0)
+    path = str(tmp_path / "tinyvad.onnx")
+    opened = []
+    for module in (jonnx, tonnx):
+        monkeypatch.setattr(module, "load_onnx", lambda p: opened.append(p) or graph)
+    audio = np.concatenate([_speechy_audio(1.6, 8), np.zeros(24000, np.float32),
+                            _speechy_audio(1.2, 9), np.zeros(16000, np.float32)])
+    jt = japi.Transcriber("base", "en", vad_weights=path).load()
+    tt = tapi.Transcriber("base", "en", vad_weights=path, device="cpu").load()
+    assert opened == [path, path]
+    out = tt.transcribe(audio)
+    assert _lines(out) == _lines(jt.transcribe(audio))
+    assert len(out.lines) == 2 and all(line.text for line in out.lines)
 
 
 def test_run_and_api_logs(catalog_cache, capsys):

@@ -5,10 +5,19 @@ and the same encoder memory go through both.  The JAX side runs with
 port's ``"auto"`` runs the plain version of its gather kernels here.
 
 Tolerances: tokens and lengths must be identical; scores agree to
-atol 1e-4 (float32 log-softmax sums in another order, nothing else).
+atol 1e-4.  In the float cases the scores differ by float32 sums taken in
+another order, nothing else.  In the int8-KV cases a last-bit difference
+of a product can also move a cached value by a whole int8 step, where it
+sits at a rounding tie of ``quantize_kv``; XLA's multi-threaded CPU
+products sum in an order that depends on the host's thread count, so those
+JAX references are computed in one subprocess with a single-threaded XLA
+CPU client (``torch_xla_reference``), which makes them the same on every
+host.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_xla_reference
 from moonshine_tpu.core.config import MoonshineArchConfig
 from moonshine_tpu.decoding.beam import beam_decode as jax_beam
 from moonshine_tpu.models import moonshine as jm
@@ -50,21 +60,72 @@ def setup():
     return params, model, np.asarray(memory), np.asarray(mask)
 
 
-def _eos_biased(params, model):
-    """The same model with a larger EOS embedding row (the output projection
-    is tied), so beams finish at different steps by emitting EOS."""
-    eos = CFG.eos_token_id
+def _eos_biased_jax(params):
+    """The same parameters with a larger EOS embedding row (the output
+    projection is tied), so beams finish at different steps by emitting
+    EOS."""
     embed = np.array(params["decoder"]["embed"])
-    embed[eos] *= 6.0
-    jp = dict(params, decoder=dict(params["decoder"], embed=jnp.asarray(embed)))
+    embed[CFG.eos_token_id] *= 6.0
+    return dict(params, decoder=dict(params["decoder"], embed=jnp.asarray(embed)))
+
+
+def _eos_biased(params, model):
+    jp = _eos_biased_jax(params)
     tp = weights.params_from_jax_numpy(jax.tree.map(np.asarray, jp), TCFG, "cpu")
     return jp, tp
 
 
-def _both(params, model, memory, mask, **kw):
+def _jax_beam(params, memory, mask, token_caps=None, **kw):
+    return jax_beam(params, CFG, jnp.asarray(memory), jnp.asarray(mask),
+                    token_caps=None if token_caps is None else jnp.asarray(token_caps), **kw)
+
+
+# The int8-KV cases: name -> (beam_decode keywords, EOS-biased weights).
+INT8_CASES = {
+    "beam3_caps": (dict(beam_size=3, max_tokens=9, length_penalty=0.6, token_caps=[3, 5, 0]),
+                   False),
+    "beam4": (dict(beam_size=4, max_tokens=9, length_penalty=0.0, token_caps=None), False),
+    "beam4_caps": (dict(beam_size=4, max_tokens=9, length_penalty=0.6, token_caps=[6, 1, 9]),
+                   False),
+    "finished": (dict(beam_size=4, max_tokens=12, length_penalty=0.6), True),
+}
+
+
+def _int8_case(beam_size, max_tokens, length_penalty, caps, biased) -> str:
+    return next(name for name, (kw, b) in INT8_CASES.items()
+                if (kw["beam_size"], kw["max_tokens"], kw["length_penalty"],
+                    kw.get("token_caps"), b) == (beam_size, max_tokens, length_penalty, caps,
+                                                 biased))
+
+
+def int8_references(inputs: dict) -> dict:
+    """Every int8-KV case's JAX beam search (run by ``torch_xla_reference``
+    with a single-threaded XLA CPU client)."""
+    params = jm.init_params(CFG, jax.random.PRNGKey(0))
+    out = {}
+    for name, (kw, biased) in INT8_CASES.items():
+        ref = _jax_beam(_eos_biased_jax(params) if biased else params, inputs["memory"],
+                        inputs["mask"], kv_int8=True, **kw)
+        for field in ("tokens", "lengths", "scores"):
+            out[f"{name}_{field}"] = np.asarray(getattr(ref, field))
+    return out
+
+
+@pytest.fixture(scope="module")
+def int8_refs(setup, tmp_path_factory):
+    _, _, memory, mask = setup
+    refs = torch_xla_reference.single_threaded(
+        __file__, "int8_references", {"memory": memory, "mask": mask},
+        tmp_path_factory.mktemp("beam_int8"))
+    return {name: SimpleNamespace(**{f: refs[f"{name}_{f}"] for f in ("tokens", "lengths",
+                                                                      "scores")})
+            for name in INT8_CASES}
+
+
+def _both(params, model, memory, mask, int8_ref=None, **kw):
     caps = kw.pop("token_caps", None)
-    ref = jax_beam(params, CFG, jnp.asarray(memory), jnp.asarray(mask),
-                   token_caps=None if caps is None else jnp.asarray(caps), **kw)
+    ref = int8_ref if kw.get("kv_int8") else _jax_beam(params, memory, mask, token_caps=caps,
+                                                       **kw)
     out = beam.beam_decode(model, TCFG, _t(memory), _t(mask),
                            token_caps=None if caps is None else _t(caps), **kw)
     return out, ref
@@ -85,9 +146,10 @@ def _assert_same(out, ref):
     (4, 0.0, True, None),
     (4, 0.6, True, [6, 1, 9]),
 ])
-def test_beam_matches_jax(setup, beam_size, length_penalty, kv_int8, caps):
+def test_beam_matches_jax(setup, int8_refs, beam_size, length_penalty, kv_int8, caps):
     params, model, memory, mask = setup
-    out, ref = _both(params, model, memory, mask, beam_size=beam_size, max_tokens=9,
+    ref = int8_refs[_int8_case(beam_size, 9, length_penalty, caps, False)] if kv_int8 else None
+    out, ref = _both(params, model, memory, mask, ref, beam_size=beam_size, max_tokens=9,
                      length_penalty=length_penalty, kv_int8=kv_int8, token_caps=caps)
     assert out.tokens.shape == (3, 9) and out.tokens.dtype == torch.int64
     _assert_same(out, ref)
@@ -98,13 +160,14 @@ def test_beam_matches_jax(setup, beam_size, length_penalty, kv_int8, caps):
 
 
 @pytest.mark.parametrize("kv_int8", [False, True])
-def test_beam_with_finished_beams_matches_jax(setup, kv_int8):
+def test_beam_with_finished_beams_matches_jax(setup, int8_refs, kv_int8):
     """Beams that emit EOS at different steps stay in the active set with
     only EOS at log-prob 0 and every other token at -1e9; rows finish at
     different steps, so finished rows ride along while others decode."""
     params, model, memory, mask = setup
     jp, tp = _eos_biased(params, model)
-    out, ref = _both(jp, tp, memory, mask, beam_size=4, max_tokens=12, length_penalty=0.6,
+    ref = int8_refs[_int8_case(4, 12, 0.6, None, True)] if kv_int8 else None
+    out, ref = _both(jp, tp, memory, mask, ref, beam_size=4, max_tokens=12, length_penalty=0.6,
                      kv_int8=kv_int8)
     _assert_same(out, ref)
     lengths = out.lengths.numpy()

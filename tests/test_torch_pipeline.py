@@ -126,10 +126,10 @@ def test_transcriber_default_vad_runs_on_cpu(tokenizer_path):
 
 
 def test_transcriber_refuses_what_is_not_ported(tokenizer_path, tmp_path, monkeypatch):
-    """The real-weight VAD, speaker identification and spelling mode are
-    not ported: asking for them raises and names ROADMAP.md; no random VAD
-    stands in for vad_weights=."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Speaker identification and spelling mode are not ported: asking for
+    them raises and names ROADMAP.md.  The real-weight VAD is ported: a
+    missing ``vad_weights=`` file raises, and no random VAD stands in."""
+    with pytest.raises(FileNotFoundError):
         tapi.Transcriber(model=TCFG, tokenizer_path=tokenizer_path,
                          vad_weights=str(tmp_path / "vad.onnx"), device="cpu").load()
     for option in ("identify_speakers", "spelling_mode"):

@@ -39,7 +39,15 @@ latencies, memory), ``[serving reference]`` (a float32 service's events
 and states on the card against the CPU's), ``[serving vad]`` (TinyVad on
 an in-memory graph of TinyVadCNN's contract, card against CPU, inside a
 service) and ``[streaming bench]`` (``eval/streaming_bench.run_bench``);
-none of them runs a kernel of the repository. Every phase that
+none of them runs a kernel of the repository. Then speaker identification
+and spelling: ``[speakers and spelling]`` (``Transcriber(model="base")
+.with_options(identify_speakers=True)`` over a 60 s synthetic two-speaker
+conversation in 0.5 s chunks; the diarizer's activities, embeddings and
+turns held against a CPU diarizer with the same weights and audio; K1 runs
+in every encode) and ``[spelling]`` (the spelling CNN and ``SpellingOnnx``
+on an in-memory graph of SpellingCNN's contract, card against CPU, and a
+spelling-mode stream through the pipeline ``Transcriber`` with
+``spelling_params``). Every phase that
 fails ends the run with a non-zero exit. The last two lines of standard
 output are the kernels' JSON summary and the device JSON; a fuller record
 goes to chiprun_out/chip_smoke.json. Without CUDA, or without the rest of
@@ -1711,6 +1719,387 @@ def phase_streaming_bench(root: str, card: str) -> dict:
     return out
 
 
+# [speakers and spelling]: Transcriber(model="base", identify_speakers) over
+# a synthetic two-speaker conversation in 0.5 s chunks.  A pass every
+# SPEAKER_UPDATE_S: the random-weight Base decodes to its token cap on
+# every pass (about 10 ms a token), so a pass every 0.5 s would hold the
+# phase for about a minute.  Activities and embeddings, card against CPU on
+# the same weights and batches: float32 log-mel, convolutions with TF32
+# off, a two-layer transformer; activities lie in [0, 1] and embeddings are
+# unit vectors, so 1e-4 leaves two orders of magnitude over float32
+# summation order (the port's CPU tests hold JAX to the same 1e-4).
+CONVERSATION_SECONDS = 60.0
+SPEAKER_UPDATE_S = 2.0
+DIARIZATION_TOL = 1e-4
+# [spelling]: logits of the spelling CNN and of SpellingOnnx over the
+# contract graph, card against CPU (float32 convolutions, TF32 off).
+SPELLING_TOL = 1e-4
+SPELLING_CLIPS = 64
+
+
+def synthetic_voice(seconds: float, f0: float, tilt: float, seed: int) -> np.ndarray:
+    """A voiced sound: 15 harmonics of a fundamental f0 with 3 % vibrato,
+    the k-th at 1/k**tilt, under a 4 Hz syllabic envelope, over faint
+    noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(SAMPLE_RATE * seconds)) / SAMPLE_RATE
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.03 * np.sin(2 * np.pi * 0.7 * t + seed)))
+    phase /= SAMPLE_RATE
+    tone = sum(np.sin(k * phase) / k ** tilt for k in range(1, 16))
+    envelope = np.sqrt(np.clip(np.sin(2 * np.pi * 4.0 * t + rng.uniform(0, 6)), 0, None))
+    return (0.2 * tone * envelope + 0.003 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def two_speaker_conversation(seconds: float = CONVERSATION_SECONDS, seed: int = 0):
+    """(audio, truth): turns of 3-6 s that alternate between two synthetic
+    voices (120 Hz with flat harmonics, 230 Hz with steep ones), 0.3-0.8 s
+    of silence after each; truth lists (speaker, start, end) in seconds."""
+    rng = np.random.default_rng(seed)
+    parts, truth, n, speaker = [], [], 0, 0
+    total = int(seconds * SAMPLE_RATE)
+    while n < total:
+        voice = synthetic_voice(rng.uniform(3.0, 6.0), (120.0, 230.0)[speaker],
+                                (1.0, 1.8)[speaker], seed + len(parts))
+        pause = np.zeros(int(SAMPLE_RATE * rng.uniform(0.3, 0.8)), np.float32)
+        truth.append((speaker, n / SAMPLE_RATE, min(n + len(voice), total) / SAMPLE_RATE))
+        parts += [voice, pause]
+        n += len(voice) + len(pause)
+        speaker ^= 1
+    return np.concatenate(parts)[:total], truth
+
+
+class Recorder:
+    """Wraps a callback and keeps every call's arguments and result, and
+    its wall seconds in ``seconds``."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.seconds = fn, [], []
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        self.seconds.append(time.perf_counter() - t0)
+        self.calls.append((args, out))
+        return out
+
+
+def linkage_margin(embeddings: np.ndarray, threshold: float) -> float:
+    """The smallest |d - threshold| over the decisions that
+    pipeline.diarization.cluster_embeddings takes on these embeddings
+    (average linkage on cosine distance: merge while the closest pair of
+    clusters is within the threshold), cluster distances updated by
+    Lance-Williams."""
+    e = embeddings / np.maximum(np.linalg.norm(embeddings, axis=1, keepdims=True), 1e-12)
+    d = (1.0 - e @ e.T).astype(np.float64)
+    np.fill_diagonal(d, np.inf)
+    sizes = np.ones(len(e))
+    alive = np.ones(len(e), bool)
+    margin = np.inf
+    while alive.sum() > 1:
+        masked = np.where(alive[:, None] & alive[None, :], d, np.inf)
+        i, j = np.unravel_index(np.argmin(masked), masked.shape)
+        margin = min(margin, abs(masked[i, j] - threshold))
+        if masked[i, j] > threshold:
+            break
+        d[i] = d[:, i] = (sizes[i] * d[i] + sizes[j] * d[j]) / (sizes[i] + sizes[j])
+        d[i, i] = np.inf
+        sizes[i] += sizes[j]
+        alive[j] = False
+    return float(margin)
+
+
+def _turn_rows(turns) -> list:
+    return [(t.speaker_id, t.speaker_index, round(t.start_time, 6),
+             round(t.start_time + t.duration, 6)) for t in turns]
+
+
+def phase_speakers(tokenizer_path: str, card: str, seed: int = 0) -> dict:
+    """Transcriber(model="base").with_options(identify_speakers=True) on the
+    card over a 60 s synthetic two-speaker conversation fed in 0.5 s
+    chunks.  Then a SpeakerDiarizer on the CPU, with the same weights (the
+    API's seeds), fed the same audio in the same pieces: every activity
+    and embedding batch within DIARIZATION_TOL and the same turns (speaker
+    IDs, start and end).  The device time of each model at the batches the
+    diarizer used, the margins of the threshold decisions, and the DER
+    against the synthetic truth (printed, not held: random weights)."""
+    from moonshine_tpu_torch import Transcriber
+    from moonshine_tpu_torch.eval.der import der
+    from moonshine_tpu_torch.models import diarization as dm
+    from moonshine_tpu_torch.pipeline import diarization as pd
+
+    audio, truth = two_speaker_conversation(seed=seed)
+    tr = Transcriber(model="base", tokenizer_path=tokenizer_path, seed=seed)
+    tr.with_options(identify_speakers=True).load()
+    diar = tr._pipeline.diarizer
+    if tr.device.type != "cuda" or diar is None:
+        raise SystemExit("the speaker-identifying Transcriber is not on cuda")
+    diar.activities_fn = acts = Recorder(diar.activities_fn)
+    diar.embedding_fn = embs = Recorder(diar.embedding_fn)
+    fed, steps = [], []  # every add_audio's arguments; (wall s, its model calls)
+    add_audio = diar.add_audio
+
+    def recording_add_audio(sid, piece, sample_rate=SAMPLE_RATE):
+        n_acts, n_embs = len(acts.calls), len(embs.calls)
+        t0 = time.perf_counter()
+        add_audio(sid, piece, sample_rate)
+        fed.append((sid, piece))
+        steps.append((time.perf_counter() - t0, acts.calls[n_acts:], embs.calls[n_embs:]))
+
+    diar.add_audio = recording_add_audio
+    clusterings = []
+    cluster_embeddings = pd.cluster_embeddings
+
+    def recording_clusters(e, threshold=0.7):
+        clusterings.append((e.copy(), threshold))
+        return cluster_embeddings(e, threshold)
+
+    pd.cluster_embeddings = recording_clusters
+    try:
+        stream = tr.create_stream(update_interval=SPEAKER_UPDATE_S)
+        stream.start()
+        chunk = SAMPLE_RATE // 2
+        t0 = time.perf_counter()
+        for i in range(0, len(audio), chunk):
+            stream.add_audio(audio[i:i + chunk])
+        transcript = stream.stop()
+        wall = time.perf_counter() - t0
+        turns = diar.get_turns(stream.stream_id)
+        tr.free_stream(stream)
+    finally:
+        pd.cluster_embeddings = cluster_embeddings
+
+    # The same diarization on the CPU: weights drawn from the API's seeds.
+    seg_cpu = dm.init_segmentation_params(torch.Generator().manual_seed(seed + 2), device="cpu")
+    emb_cpu = dm.init_embedding_params(torch.Generator().manual_seed(seed + 3), device="cpu")
+    cpu_acts = Recorder(lambda b: dm.segmentation_activations(seg_cpu, torch.from_numpy(b)).numpy())
+    cpu_embs = Recorder(lambda b, w: dm.embedding_forward(
+        emb_cpu, torch.from_numpy(b), torch.from_numpy(w)).numpy())
+    ref = pd.SpeakerDiarizer(cpu_acts, cpu_embs)
+    t0 = time.perf_counter()
+    for sid, piece in fed:
+        ref.add_audio(sid, piece)
+    ref_turns = ref.finish_stream(stream.stream_id)
+    cpu_s = time.perf_counter() - t0
+
+    def max_err(card_calls, cpu_calls) -> float:
+        if [c[1].shape for c in card_calls] != [c[1].shape for c in cpu_calls]:
+            return float("inf")
+        return max((float(np.abs(a[1] - b[1]).max()) for a, b in zip(card_calls, cpu_calls)),
+                   default=0.0)
+
+    act_err, emb_err = max_err(acts.calls, cpu_acts.calls), max_err(embs.calls, cpu_embs.calls)
+    same_turns = _turn_rows(turns) == _turn_rows(ref_turns)
+    act_margin = min(float(np.abs(out - pd.ACTIVITY_THRESHOLD).min()) for _, out in acts.calls)
+    link_margin = min((linkage_margin(e, th) for e, th in clusterings), default=float("inf"))
+
+    # Device time of each model at the batches the diarizer used.
+    seg = dm.init_segmentation_params(torch.Generator().manual_seed(seed + 2), device="cuda")
+    emb = dm.init_embedding_params(torch.Generator().manual_seed(seed + 3), device="cuda")
+    seg_ms, emb_ms = {}, {}
+    for (batch,), _ in acts.calls:
+        if batch.shape[0] not in seg_ms:
+            x = torch.from_numpy(batch).cuda()
+            seg_ms[batch.shape[0]] = cuda_time_ms(lambda: dm.segmentation_activations(seg, x))
+    for (batch, weights), _ in embs.calls:
+        if batch.shape[0] not in emb_ms:
+            x, w = torch.from_numpy(batch).cuda(), torch.from_numpy(weights).cuda()
+            emb_ms[batch.shape[0]] = cuda_time_ms(lambda: dm.embedding_forward(emb, x, w))
+
+    # An analysis step: a diarizer.add_audio that segmented new windows
+    # (its model calls, their copies, the clustering), beside the device
+    # time of its model calls at their batches.
+    analysis = [(wall * 1e3, sum(seg_ms[a[0].shape[0]] for a, _ in a_calls)
+                 + sum(emb_ms[e[0].shape[0]] for e, _ in e_calls))
+                for wall, a_calls, e_calls in steps if a_calls]
+    step_ms = float(np.median([w for w, _ in analysis]))
+    step_device_ms = float(np.median([d for _, d in analysis]))
+    lines = transcript.lines
+    speakers = {s.speaker_id for line in lines for s in line.speaker_spans}
+    windows = sum(args[0].shape[0] for args, _ in acts.calls)
+    embedded = sum(args[0].shape[0] for args, _ in embs.calls)
+    score = der(truth, turns)
+    out = {"seconds": CONVERSATION_SECONDS, "update_interval_s": SPEAKER_UPDATE_S,
+           "lines": len(lines), "lines_with_speakers": sum(bool(l.speaker_spans) for l in lines),
+           "speakers": len(speakers), "turns": len(turns), "windows": windows,
+           "activity_calls": len(acts.calls), "embeddings": embedded,
+           "embedding_calls": len(embs.calls), "wall_s": wall, "cpu_diarizer_s": cpu_s,
+           "segmentation_ms": seg_ms, "embedding_ms": emb_ms, "analysis_steps": len(analysis),
+           "analysis_step_ms_p50": step_ms, "analysis_step_device_ms_p50": step_device_ms,
+           "activities_max_abs_err": act_err, "embeddings_max_abs_err": emb_err,
+           "turns_equal": same_turns, "activity_margin": act_margin,
+           "linkage_margin": link_margin, "der": {k: v for k, v in score.items() if k != "mapping"}}
+    log(f"  base + diarizer, {CONVERSATION_SECONDS:g} s in 0.5 s chunks, a pass every "
+        f"{SPEAKER_UPDATE_S:g} s: {len(lines)} lines ({out['lines_with_speakers']} with speakers), "
+        f"{len(speakers)} distinct speakers, {len(turns)} turns; {windows} windows segmented in "
+        f"{len(acts.calls)} calls, {embedded} embeddings in {len(embs.calls)} calls; wall "
+        f"{wall:.3f} s on {card}")
+    log("  device ms (CUDA events, median of 7): segmentation_activations "
+        + ", ".join(f"B={b}: {ms:.4f}" for b, ms in sorted(seg_ms.items()))
+        + "; embedding_forward " + ", ".join(f"B={b}: {ms:.4f}" for b, ms in sorted(emb_ms.items()))
+        + f"; an analysis step (median of {len(analysis)}) {step_ms:.3f} ms of wall, its model "
+        f"calls {step_device_ms:.4f} ms of device ({step_device_ms / step_ms:.3f} of the wall)")
+    log(f"  card against cpu (cpu diarizer {cpu_s:.2f} s): activities max_abs_err {act_err:.3e}, "
+        f"embeddings {emb_err:.3e} (tolerance {DIARIZATION_TOL:g}); turns equal {same_turns}; "
+        f"closest activity to its threshold {act_margin:.3e}, closest linkage decision "
+        f"{link_margin:.3e}")
+    log(f"  DER against the synthetic truth (random weights, not held): "
+        + json.dumps(out["der"]))
+    if not same_turns:
+        for a, b in zip(_turn_rows(turns), _turn_rows(ref_turns)):
+            if a != b:
+                log(f"    first different turn: card {a}, cpu {b}")
+                break
+    if act_err > DIARIZATION_TOL or emb_err > DIARIZATION_TOL or not same_turns:
+        raise SystemExit("the diarizer on the card disagrees with the CPU's")
+    if not lines or not embedded or not out["lines_with_speakers"]:
+        raise SystemExit("the diarizer embedded no speaker or no line carries a speaker")
+    return out
+
+
+def spelling_clips(n: int, seed: int = 17) -> np.ndarray:
+    """[n, 16000]: 1 s clips, each a 0.3-0.7 s voiced burst at its own
+    fundamental, placed at random in silence."""
+    rng = np.random.default_rng(seed)
+    clips = np.zeros((n, SAMPLE_RATE), np.float32)
+    for i in range(n):
+        burst = synthetic_voice(rng.uniform(0.3, 0.7), rng.uniform(90, 300), rng.uniform(0.8, 2),
+                                seed + i)
+        at = rng.integers(0, SAMPLE_RATE - len(burst))
+        clips[i, at:at + len(burst)] = burst
+    return clips
+
+
+def spelling_graph(seed: int = 0):
+    """An in-memory ONNX graph of SpellingCNN's contract (the real export
+    is not in the repository): input ``mel`` [N, 1, 64, 128], output
+    ``logits`` [N, 51]; MobileNetV2-style: a 3x3 stride-2 stem, two inverted
+    residual blocks (1x1 expansion, 3x3 depthwise, 1x1 linear projection;
+    the second strided 1 with its skip), batch norms, ReLU6 (Clip), a 1x1
+    head convolution, a global average pool and a Gemm, seeded weights.
+    The port's CPU tests run the same graph."""
+    from moonshine_tpu_torch.core.onnx_io import OnnxGraph, OnnxNode
+
+    rng = np.random.default_rng(seed)
+    inits = {"relu6_lo": np.asarray(0.0, np.float32), "relu6_hi": np.asarray(6.0, np.float32)}
+    nodes = []
+
+    def conv(x, name, cin, cout, k=1, stride=1, group=1, act=True):
+        inits[name + "_w"] = (rng.standard_normal((cout, cin // group, k, k))
+                              * np.sqrt(2.0 / (cin // group * k * k))).astype(np.float32)
+        inits[name + "_b"] = np.zeros(cout, np.float32)
+        for part, v in (("s", 1 + 0.1 * rng.standard_normal(cout)),
+                        ("o", 0.1 * rng.standard_normal(cout)),
+                        ("m", 0.1 * rng.standard_normal(cout)),
+                        ("v", rng.uniform(0.5, 1.5, cout))):
+            inits[f"{name}_bn_{part}"] = v.astype(np.float32)
+        p = k // 2
+        nodes.append(OnnxNode("Conv", [x, name + "_w", name + "_b"], [name + "_c"],
+                              attrs={"kernel_shape": [k, k], "strides": [stride, stride],
+                                     "pads": [p, p, p, p], "group": group}))
+        nodes.append(OnnxNode("BatchNormalization", [name + "_c"] + [
+            f"{name}_bn_{part}" for part in "somv"], [name + "_n"], attrs={"epsilon": 1e-5}))
+        if not act:
+            return name + "_n"
+        nodes.append(OnnxNode("Clip", [name + "_n", "relu6_lo", "relu6_hi"], [name]))
+        return name
+
+    h = conv("mel", "stem", 1, 16, k=3, stride=2)
+    h = conv(h, "b1_expand", 16, 64)
+    h = conv(h, "b1_dw", 64, 64, k=3, stride=2, group=64)
+    h = conv(h, "b1_project", 64, 24, act=False)
+    r = conv(h, "b2_expand", 24, 96)
+    r = conv(r, "b2_dw", 96, 96, k=3, group=96)
+    r = conv(r, "b2_project", 96, 24, act=False)
+    nodes.append(OnnxNode("Add", [h, r], ["b2"]))
+    h = conv("b2", "head", 24, 128)
+    inits["fc_w"] = (rng.standard_normal((51, 128)) / np.sqrt(128)).astype(np.float32)
+    inits["fc_b"] = np.zeros(51, np.float32)
+    nodes += [OnnxNode("GlobalAveragePool", [h], ["pool"]),
+              OnnxNode("Flatten", ["pool"], ["flat"], attrs={"axis": 1}),
+              OnnxNode("Gemm", ["flat", "fc_w", "fc_b"], ["logits"], attrs={"transB": 1})]
+    return OnnxGraph(nodes=nodes, initializers=inits, inputs=[("mel", ["batch", 1, 64, 128])],
+                     outputs=[("logits", ["batch", 51])])
+
+
+def phase_spelling(tokenizer_path: str, card: str, seed: int = 0) -> dict:
+    """The spelling CNN (seeded weights) on SPELLING_CLIPS 1 s clips and
+    SpellingOnnx over the contract graph, card against CPU (logits within
+    SPELLING_TOL), each timed on the card at that batch; then a
+    spelling-mode stream through the pipeline Transcriber with
+    ``spelling_params`` on the card (Base, VAD off, 1 s segments): every
+    completed line must carry what the fusion of its ASR text with the
+    CPU's CNN prediction on its audio gives."""
+    from moonshine_tpu_torch.core.config import BASE, TranscriberOptions, VadOptions
+    from moonshine_tpu_torch.core.tokenizer import BinTokenizer
+    from moonshine_tpu_torch.models import moonshine as mm
+    from moonshine_tpu_torch.models import spelling as sp
+    from moonshine_tpu_torch.pipeline.backends import OfflineBackend
+    from moonshine_tpu_torch.pipeline.spelling import SpellingMatcher, fuse_default
+    from moonshine_tpu_torch.pipeline.transcriber import FLAG_SPELLING_MODE, Transcriber
+
+    clips = torch.from_numpy(spelling_clips(SPELLING_CLIPS))
+    cnn = sp.init_params(torch.Generator().manual_seed(seed), device="cuda")
+    cnn_cpu = copy.deepcopy(cnn).to("cpu")
+    onnx = {dev: sp.SpellingOnnx(spelling_graph(seed), device=dev) for dev in ("cuda", "cpu")}
+    x = clips.cuda()
+    rows = {}
+    for name, on_card, on_cpu in (
+            ("cnn", lambda: sp.forward(cnn, x), lambda: sp.forward(cnn_cpu, clips)),
+            ("onnx", lambda: onnx["cuda"].logits(x), lambda: onnx["cpu"].logits(clips))):
+        card_logits, cpu_logits = on_card().cpu(), on_cpu()
+        rows[name] = {"shape": list(card_logits.shape),
+                      "max_abs_err": float((card_logits - cpu_logits).abs().max()),
+                      "same_top1": int((card_logits.argmax(-1) == cpu_logits.argmax(-1)).sum()),
+                      "finite": bool(card_logits.isfinite().all()),
+                      "ms": cuda_time_ms(on_card)}
+        log(f"  {name}: logits {tuple(card_logits.shape)} max_abs_err {rows[name]['max_abs_err']:.3e} "
+            f"(tolerance {SPELLING_TOL:g}), top-1 equal on {rows[name]['same_top1']} of "
+            f"{SPELLING_CLIPS}; {rows[name]['ms']:.4f} ms a batch of {SPELLING_CLIPS} on {card}")
+
+    # A spelling-mode stream: Base on the card, the VAD off, 1 s segments.
+    gen = torch.Generator().manual_seed(seed)
+    backend = OfflineBackend(mm.init_params(BASE, gen, "cuda"), BASE,
+                             BinTokenizer.from_file(tokenizer_path))
+    asr_text = {}
+    transcribe_segment = backend.transcribe_segment
+
+    def recording(audio, segment_id, is_final):
+        result = transcribe_segment(audio, segment_id, is_final)
+        asr_text[segment_id] = result.text
+        return result
+
+    backend.transcribe_segment = recording
+    opts = TranscriberOptions(model="base", vad=VadOptions(threshold=0.0, max_segment_duration=1.0))
+    tr = Transcriber(backend, opts, spelling_params=cnn)
+    audio = np.concatenate([np.concatenate([c, np.zeros(4000, np.float32)])
+                            for c in spelling_clips(6, seed=18)])
+    stream = tr.create_stream(update_interval=0.5, flags=FLAG_SPELLING_MODE)
+    stream.start()
+    t0 = time.perf_counter()
+    for i in range(0, len(audio), SAMPLE_RATE // 2):
+        stream.add_audio(audio[i:i + SAMPLE_RATE // 2])
+    transcript = stream.stop()
+    wall = time.perf_counter() - t0
+    matcher = SpellingMatcher()
+    completed = [line for line in transcript.lines if line.is_complete]
+    expected = []
+    for line in completed:
+        text = asr_text[line.id]
+        fused = fuse_default(text, matcher.classify(text), sp.predict(cnn_cpu, line.audio_data),
+                             matcher)
+        expected.append(fused.character if fused.is_character else text)
+    got = [line.text for line in completed]
+    log(f"  spelling-mode stream, {len(audio) / SAMPLE_RATE:g} s: {len(completed)} completed lines "
+        f"{got}, as the CPU's fusion gives: {got == expected}; wall {wall:.3f} s on {card}")
+    out = {**rows, "stream_lines": len(completed), "stream_texts": got,
+           "stream_equal_cpu": got == expected, "stream_wall_s": wall}
+    if any(r["max_abs_err"] > SPELLING_TOL or not r["finite"] for r in rows.values()):
+        raise SystemExit("the spelling models on the card disagree with the CPU")
+    if not completed or got != expected:
+        raise SystemExit(f"the spelling-mode stream gave {got}, the CPU's fusion {expected}")
+    return out
+
+
 def gather_entry(name: str, replaces: str, launches: int, max_err: float, t: dict,
                  extra: dict | None = None) -> dict:
     return {"name": name, "route": "cuda", "source": "moonshine_tpu_torch/csrc/beam_gather.cu",
@@ -1835,6 +2224,19 @@ def main() -> int:
         streaming_bench = phase_streaming_bench(tmp, card)
         serving_launches["streaming bench"] = kernel_launches(ea, bg)
         log(f"  kernel launches on the service's paths: {serving_launches}")
+        # Speaker identification and spelling run Base's encoder (K1) under
+        # models that are XLA code in the JAX package (no Pallas).
+        log("[speakers and spelling] Transcriber(model='base', identify_speakers=True) on cuda")
+        reset_launches(ea, bg)
+        speakers = phase_speakers(tok_path, card)
+        speaker_launches = {"speakers and spelling": kernel_launches(ea, bg)}
+        log("[spelling] the spelling CNN, SpellingOnnx and a spelling-mode stream on cuda")
+        reset_launches(ea, bg)
+        spelling = phase_spelling(tok_path, card)
+        speaker_launches["spelling"] = kernel_launches(ea, bg)
+        log(f"  kernel launches: {speaker_launches}")
+        if not speaker_launches["speakers and spelling"]["encoder_attention_packed"]:
+            raise SystemExit("K1 did not launch on the speaker-identifying path")
 
     k3, k4 = gather_times["K3 int8"], gather_times["K4"]
     k3_bf16 = gather_times["K3 bf16"]
@@ -1859,10 +2261,11 @@ def main() -> int:
                   "batched beam": beam["launches"]["encoder_attention_packed"],
                   "sharded path": sharded["launches"]["encoder_attention_packed"]}
 
-    def on_service_paths(kernel: str) -> dict:
-        return {path: counts[kernel] for path, counts in serving_launches.items()}
+    def on_counted_paths(kernel: str) -> dict:
+        return {path: counts[kernel]
+                for path, counts in {**serving_launches, **speaker_launches}.items()}
 
-    k1_by_path.update(on_service_paths("encoder_attention_packed"))
+    k1_by_path.update(on_counted_paths("encoder_attention_packed"))
     kernels = [{
         "name": "encoder_attention_packed", "route": "cuda",
         "source": "moonshine_tpu_torch/csrc/encoder_attention.cu",
@@ -1879,7 +2282,7 @@ def main() -> int:
         "replaces": "moonshine_tpu/ops/encoder_attention.py:43",
         "launches": sharded["launches"]["encoder_attention"],
         "launches_by_path": {"sharded path": sharded["launches"]["encoder_attention"],
-                             **on_service_paths("encoder_attention")},
+                             **on_counted_paths("encoder_attention")},
         "max_abs_err": hm_err,
         "tol": {k: list(TOL[getattr(torch, k)]) for k in ("float32", "bfloat16")},
         "ms": hm_times["base"]["kernel_ms"], "kernel_ms": hm_times["base"]["kernel_ms"],
@@ -1896,11 +2299,11 @@ def main() -> int:
                     {"bf16_ms": k3_bf16["kernel_ms"], "bf16_plain_ms": k3_bf16["plain_ms"],
                      "bf16_bound_ms": k3_bf16["bound_ms"],
                      "launches_by_path": {"batched beam": beam["launches"]["gather_kv_rows"],
-                                          **on_service_paths("gather_kv_rows")}}),
+                                          **on_counted_paths("gather_kv_rows")}}),
         gather_entry("gather_scale_rows", "moonshine_tpu/ops/beam_gather.py:76",
                      beam["launches"]["gather_scale_rows"], gather_err, k4,
                      {"launches_by_path": {"batched beam": beam["launches"]["gather_scale_rows"],
-                                           **on_service_paths("gather_scale_rows")}})]
+                                           **on_counted_paths("gather_scale_rows")}})]
     record = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "kernel_times": times, "hm_times": hm_times, "f32_times": f32_times,
               "batch_independence": batch_independence, "sass": sass,
@@ -1913,6 +2316,7 @@ def main() -> int:
               "streaming_reference": streaming_ref, "serving": serving,
               "serving_reference": serving_ref, "serving_vad": serving_vad,
               "streaming_bench": streaming_bench, "serving_launches": serving_launches,
+              "speakers": speakers, "spelling": spelling, "speaker_launches": speaker_launches,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -25,8 +25,11 @@ Word timestamps (``with_options(word_timestamps=True)``) come from the
 decoder's cross-attention.  ``vad_weights=`` names a TinyVadCNN ONNX
 export, which then gives the VAD's speech probabilities (as long as the
 VAD threshold is above 0); otherwise the random-weight VAD of ``seed``
-does.  Speaker identification and spelling are not ported yet (ROADMAP.md)
-and raise.
+does.  ``with_options(identify_speakers=True)`` diarizes every stream with
+the segmentation and speaker-embedding models (random weights from
+``seed + 2`` and ``seed + 3``, as the JAX package draws them) on the
+transcriber's device; ``with_options(spelling_mode=True)`` turns each
+completed line into the character the spelling matcher hears in it.
 """
 
 from __future__ import annotations
@@ -149,8 +152,33 @@ class Transcriber:
                 word_timestamps=self.options.word_timestamps,
                 kv_int8=self.options.kv_int8,
             )
-        self._pipeline = _PipelineTranscriber(backend, self.options, hop_prob_fn=self._load_vad())
+        diarizer = self._load_diarizer() if self.options.identify_speakers else None
+        self._pipeline = _PipelineTranscriber(backend, self.options, hop_prob_fn=self._load_vad(),
+                                              diarizer=diarizer)
         return self
+
+    def _load_diarizer(self):
+        """A ``SpeakerDiarizer`` over the segmentation and embedding models,
+        on this transcriber's device: its callbacks move each numpy batch
+        there and the result back."""
+        from .models import diarization as dm
+        from .pipeline.diarization import SpeakerDiarizer
+
+        seg = dm.init_segmentation_params(torch.Generator().manual_seed(self._seed + 2),
+                                          device=self.device)
+        emb = dm.init_embedding_params(torch.Generator().manual_seed(self._seed + 3),
+                                       device=self.device)
+
+        def activities(batch: np.ndarray) -> np.ndarray:
+            audio = torch.from_numpy(batch).to(self.device)
+            return dm.segmentation_activations(seg, audio).cpu().numpy()
+
+        def embeddings(batch: np.ndarray, weights: np.ndarray) -> np.ndarray:
+            audio = torch.from_numpy(batch).to(self.device)
+            w = torch.from_numpy(weights).to(self.device)
+            return dm.embedding_forward(emb, audio, w).cpu().numpy()
+
+        return SpeakerDiarizer(activities, embeddings)
 
     def _load_tokenizer(self) -> BinTokenizer:
         """The explicit path, then the catalog's ``tokenizer.bin`` for this

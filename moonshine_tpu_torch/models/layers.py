@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``models/layers.py``.  Parameters live in
 small ``nn.Module`` holders in PyTorch's own layouts: a dense layer keeps
 ``weight [out, in]`` (``nn.Linear``'s layout, where the JAX package keeps
 ``w [in, out]``), a convolution ``weight [out, in, k]`` (``nn.Conv1d``'s,
-where JAX keeps ``WIO [k, in, out]``) and a norm ``weight``/``bias``.  The
+where JAX keeps ``WIO [k, in, out]``; ``[out, in, kh, kw]`` in two
+dimensions, where JAX keeps ``HWIO``) and a norm ``weight``/``bias``.  The
 functions below take those holders and compute what their JAX namesakes
 compute, with the same dtypes at the same places; ``weights.py`` converts
 between the two layouts.  A dense layer quantized for execution
@@ -55,6 +56,10 @@ class Conv1d(nn.Module):
         super().__init__()
         self.weight = _param(weight)
         self.bias = _param(bias)
+
+
+class Conv2d(Conv1d):
+    """Two-dimensional convolution; ``weight`` is ``[out, in, kh, kw]``."""
 
 
 class Norm(nn.Module):
@@ -173,6 +178,29 @@ def conv1d(p: Conv1d, x: torch.Tensor, stride: int) -> torch.Tensor:
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
     return y
+
+
+def same_pads(n: int, k: int, stride: int = 1, dilation: int = 1) -> tuple[int, int]:
+    """XLA's ``padding="SAME"`` on one axis of length ``n``: the output has
+    ceil(n / stride) positions and the padding total, max((out - 1) *
+    stride + (k - 1) * dilation + 1 - n, 0), is split with the smaller half
+    before.  So it can be uneven: n=200, k=3, stride 2 gives (0, 1), where
+    ``F.conv2d(padding=1)`` pads (1, 1), keeps the shape and shifts every
+    output by one input position."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(x: torch.Tensor, p: Conv1d, stride: int = 1, dilation: int = 1) -> torch.Tensor:
+    """A convolution with XLA's SAME padding over every spatial axis.
+    x: ``[B, C, n]`` (``Conv1d``) or ``[B, C, h, w]`` (``Conv2d``)."""
+    spatial = p.weight.shape[2:]
+    pads: list[int] = []
+    for axis in reversed(range(len(spatial))):  # F.pad lists the last axis first
+        pads += same_pads(x.shape[2 + axis], spatial[axis], stride, dilation)
+    conv = F.conv1d if len(spatial) == 1 else F.conv2d
+    return conv(F.pad(x, pads), p.weight, p.bias, stride=stride, dilation=dilation)
 
 
 def layer_norm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

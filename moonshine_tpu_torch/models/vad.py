@@ -26,7 +26,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..ops.mel import mel_columns
 from ..ops.onnx_graph import execute
-from .layers import Conv1d, Dense, dense, dense_init
+from .layers import Conv1d, Dense, conv_same, dense, dense_init
 
 SAMPLE_RATE = 16000
 HOP_SIZE = 512
@@ -108,22 +108,11 @@ def _features(p: Vad, frames: torch.Tensor) -> torch.Tensor:
     return torch.log1p(torch.sqrt(re * re + im * im + 1e-9))
 
 
-def _conv_same(x: torch.Tensor, conv: Conv1d, stride: int) -> torch.Tensor:
-    """XLA ``padding="SAME"``: the output has ceil(n / stride) frames and
-    the padding total = max((out - 1) * stride + k - n, 0) is split with
-    the smaller half on the left.  x: [B, C, n]."""
-    n, k = x.shape[-1], conv.weight.shape[-1]
-    out = -(-n // stride)
-    total = max((out - 1) * stride + k - n, 0)
-    x = F.pad(x, (total // 2, total - total // 2))
-    return F.conv1d(x, conv.weight, conv.bias, stride=stride)
-
-
 def _encoder(p: Vad, feats: torch.Tensor) -> torch.Tensor:
     """Conv stack collapsing the frame axis -> [B, 128]."""
     h = feats.transpose(1, 2)  # [B, C, T']
     for i, conv in enumerate(p.enc):
-        h = torch.relu(_conv_same(h, conv, 2 if i < 2 else 1))
+        h = torch.relu(conv_same(h, conv, 2 if i < 2 else 1))
     return h.mean(dim=-1)
 
 

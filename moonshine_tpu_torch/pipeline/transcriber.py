@@ -20,9 +20,10 @@ Contracts kept:
 - per-line ``last_transcription_latency_ms`` carried in the transcript
   itself (reference: transcriber.h:40).
 
-A copy of the JAX package's ``pipeline/transcriber.py`` without the
-spelling fusion and speaker diarization: the port has not ported those
-models yet, so asking for them raises ``NotImplementedError``.
+A copy of the JAX package's ``pipeline/transcriber.py``: speaker turns come
+from an injected ``diarizer`` (``pipeline/diarization.SpeakerDiarizer``)
+and spelling mode fuses the matcher with the port's spelling CNN
+(``models/spelling.py``) when ``spelling_params`` is given.
 """
 
 from __future__ import annotations
@@ -270,13 +271,11 @@ class Transcriber:
         backend: AsrBackend,
         options: TranscriberOptions | None = None,
         hop_prob_fn=None,
+        diarizer=None,
+        spelling_params=None,
     ):
         self.backend = backend
         self.options = options or TranscriberOptions()
-        if self.options.spelling_mode or self.options.identify_speakers:
-            raise NotImplementedError(
-                "spelling_mode and identify_speakers are not ported yet (see "
-                "ROADMAP.md queue 1)")
         if self.options.log_model_run:
             # The log_ort_run analog: stderr timing of every device run
             # (see profiling.py).
@@ -284,6 +283,13 @@ class Transcriber:
 
             profiling.enable_device_run_log(True)
         self.hop_prob_fn = hop_prob_fn
+        self.diarizer = diarizer
+        # Spelling-mode auxiliaries: the matcher is free; the CNN only runs
+        # when params were provided (reference: transcriber.h:198-206).
+        self.spelling_params = spelling_params
+        from .spelling import SpellingMatcher
+
+        self.spelling_matcher = SpellingMatcher()
         self._streams: dict[int, Stream] = {}
         self._next_stream_id = itertools.count()
         self._next_line_id = itertools.count()
@@ -341,12 +347,19 @@ class Transcriber:
                 # Too little audio for a pass: put it back for next time.
                 with stream._lock:
                     stream.new_audio = np.concatenate([audio, stream.new_audio])
+            if self.diarizer is not None:
+                self._apply_speakers(stream)
             if is_stopped:
                 stream.output.mark_all_lines_as_complete()
             return stream.output.snapshot()
 
+        if self.diarizer is not None:
+            self.diarizer.add_audio(stream.stream_id, audio)
+
         stream.segmenter.process_audio(audio, INTERNAL_SAMPLE_RATE)
         self._update_transcript_from_segments(stream, flags)
+        if self.diarizer is not None:
+            self._apply_speakers(stream)
         return stream.output.snapshot()
 
     def _update_transcript_from_segments(self, stream: Stream, flags: int) -> None:
@@ -388,22 +401,54 @@ class Transcriber:
             )
             if self.options.log_output_text and text:
                 print(f"Transcribed text: {text!r}")
-            if flags & FLAG_SPELLING_MODE:
-                raise NotImplementedError("spelling mode is not ported yet")
+            spelling_mode = bool(flags & FLAG_SPELLING_MODE) or self.options.spelling_mode
+            if spelling_mode and line.is_complete:
+                self._apply_spelling_fusion(line, segment.audio_data)
             stream.output.add_or_update_line(line)
         if not stream.segmenter.is_active:
             stream.output.mark_all_lines_as_complete()
+
+    def _apply_spelling_fusion(self, line: TranscriptLine, audio) -> bool:
+        """Fuse matcher + (optional) spelling-CNN on a completed line,
+        replacing the text only on a CHARACTER result (reference:
+        transcriber.cpp:832, apply_spelling_fusion)."""
+        if line.text is None:
+            return False
+        from .spelling import fuse_default
+
+        match = self.spelling_matcher.classify(line.text)
+        prediction = None
+        if self.spelling_params is not None and audio is not None and len(audio):
+            from ..models import spelling as spelling_model
+
+            prediction = spelling_model.predict(self.spelling_params, audio)
+        result = fuse_default(line.text, match, prediction, self.spelling_matcher)
+        if not result.is_character:
+            return False
+        line.text = result.character
+        return True
+
+    def _apply_speakers(self, stream: Stream) -> None:
+        turns = self.diarizer.get_turns(stream.stream_id)
+        from .diarization import apply_speaker_turns_to_lines
+
+        apply_speaker_turns_to_lines(turns, stream.output)
 
     def _finalize_stream(self, stream: Stream, flags: int) -> Transcript:
         """Segment any remaining audio, stop the segmenter, and run the
         final transcription pass over just-updated segments (reference:
         transcriber.cpp:556-566 does segment -> stop -> transcribe)."""
         audio = stream._take_new_audio()
+        if self.diarizer is not None and audio.size:
+            self.diarizer.add_audio(stream.stream_id, audio)
         if stream.segmenter.is_active:
             if audio.size:
                 stream.segmenter.process_audio(audio, INTERNAL_SAMPLE_RATE)
             stream.segmenter.stop()
         self._update_transcript_from_segments(stream, flags)
+        if self.diarizer is not None:
+            self.diarizer.finish_stream(stream.stream_id)
+            self._apply_speakers(stream)
         return stream.output.snapshot()
 
     # -- batch API (reference: transcriber.cpp:534-651) ---------------------

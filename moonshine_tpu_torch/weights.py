@@ -15,9 +15,11 @@ Two sources of weights:
   layers stacked on a leading axis, dense kernels ``[in, out]`` and conv
   kernels ``[k, in, out]`` (WIO).  ``params_from_jax_numpy`` and
   ``params_to_numpy`` convert in both directions, exec-quantized
-  ``w_q``/``w_scale`` leaves included.  They take the tree as numpy arrays
-  (a caller that has JAX passes ``jax.tree.map(np.asarray, params)``; the
-  port itself never imports JAX).
+  ``w_q``/``w_scale`` leaves included; the VAD, spelling CNN (HWIO
+  ``[kh, kw, in, out]`` kernels) and diarization models have their own
+  ``*_from_jax_numpy`` / ``*_to_numpy`` pairs.  They take the tree as numpy
+  arrays (a caller that has JAX passes ``jax.tree.map(np.asarray,
+  params)``; the port itself never imports JAX).
 
 Every leaf is made C-contiguous before it becomes a tensor: a numpy view of
 a device array can be F-strided, and ``torch.from_numpy`` would keep those
@@ -39,7 +41,9 @@ from .core.device import resolve_device
 from .models import moonshine as mm
 from .models import streaming as ms
 from .models import vad as vad_mod
-from .models.layers import Conv1d, Dense, Norm
+from .models import diarization as dm
+from .models import spelling as sp
+from .models.layers import Conv1d, Conv2d, Dense, Norm
 
 
 def _tensor(x) -> torch.Tensor:
@@ -68,8 +72,11 @@ def _dense(p: dict) -> Dense:
 
 
 def _conv(p: dict) -> Conv1d:
+    """WIO ``[k, in, out]`` -> ``[out, in, k]``; HWIO -> OIHW (``Conv2d``)."""
     bias = _tensor(p["b"]) if "b" in p else None
-    return Conv1d(_tensor(np.transpose(p["w"], (2, 1, 0))), bias)
+    w = np.asarray(p["w"])
+    weight = _tensor(np.transpose(w, (w.ndim - 1, w.ndim - 2, *range(w.ndim - 2))))
+    return (Conv1d if w.ndim == 3 else Conv2d)(weight, bias)
 
 
 def _norm(p: dict) -> Norm:
@@ -96,6 +103,11 @@ def _unstack(tree, n: int) -> list:
     return [arr[i] for i in range(n)]
 
 
+def _encoder_layer(lp: dict) -> mm.EncoderLayer:
+    return mm.EncoderLayer(_norm(lp["ln1"]), _attention(lp["attn"]), _norm(lp["ln2"]),
+                           mm.Mlp(_dense(lp["mlp"]["fc1"]), _dense(lp["mlp"]["fc2"])))
+
+
 def params_from_jax_numpy(tree: dict, cfg: MoonshineArchConfig,
                           device: str | torch.device | None = None) -> mm.Moonshine:
     """A JAX ``models.moonshine`` parameter tree (numpy leaves) -> the
@@ -105,11 +117,8 @@ def params_from_jax_numpy(tree: dict, cfg: MoonshineArchConfig,
     fe = tree["frontend"]
     frontend = mm.Frontend(_conv(fe["conv1"]), _norm(fe["gn"]), _conv(fe["conv2"]),
                            _conv(fe["conv3"]))
-    enc_layers = [
-        mm.EncoderLayer(_norm(lp["ln1"]), _attention(lp["attn"]), _norm(lp["ln2"]),
-                        mm.Mlp(_dense(lp["mlp"]["fc1"]), _dense(lp["mlp"]["fc2"])))
-        for lp in _unstack(tree["encoder"]["layers"], cfg.encoder_layers)
-    ]
+    enc_layers = [_encoder_layer(lp)
+                  for lp in _unstack(tree["encoder"]["layers"], cfg.encoder_layers)]
     dec_layers = [
         mm.DecoderLayer(_norm(lp["ln1"]), _attention(lp["self_attn"]), _norm(lp["ln2"]),
                         _attention(lp["cross_attn"]), _norm(lp["ln3"]),
@@ -136,7 +145,8 @@ def _dense_np(p: Dense) -> dict:
 
 
 def _conv_np(p: Conv1d) -> dict:
-    out = {"w": np.ascontiguousarray(_numpy(p.weight).transpose(2, 1, 0))}
+    w = _numpy(p.weight)
+    out = {"w": np.ascontiguousarray(w.transpose(*range(2, w.ndim), 1, 0))}
     if p.bias is not None:
         out["b"] = _numpy(p.bias)
     return out
@@ -157,6 +167,11 @@ def _attention_np(a: mm.Attention) -> dict:
     return out
 
 
+def _encoder_layer_np(lp: mm.EncoderLayer) -> dict:
+    return {"ln1": _norm_np(lp.ln1), "attn": _attention_np(lp.attn), "ln2": _norm_np(lp.ln2),
+            "mlp": {"fc1": _dense_np(lp.mlp.fc1), "fc2": _dense_np(lp.mlp.fc2)}}
+
+
 def _stack(trees: list):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -168,11 +183,7 @@ def params_to_numpy(model: mm.Moonshine) -> dict:
     arrays (layers stacked; bf16 weights come back as float32; quantized
     layers as ``w_q``/``w_scale``)."""
     fe = model.frontend
-    enc_layers = [
-        {"ln1": _norm_np(lp.ln1), "attn": _attention_np(lp.attn), "ln2": _norm_np(lp.ln2),
-         "mlp": {"fc1": _dense_np(lp.mlp.fc1), "fc2": _dense_np(lp.mlp.fc2)}}
-        for lp in model.encoder.layers
-    ]
+    enc_layers = [_encoder_layer_np(lp) for lp in model.encoder.layers]
     dec_layers = [
         {"ln1": _norm_np(lp.ln1), "self_attn": _attention_np(lp.self_attn),
          "ln2": _norm_np(lp.ln2), "cross_attn": _attention_np(lp.cross_attn),
@@ -209,6 +220,55 @@ def vad_params_to_numpy(model: vad_mod.Vad) -> dict:
         "lstm": {"wi": _dense_np(model.lstm.wi), "wh": _dense_np(model.lstm.wh)},
         "head": _dense_np(model.head),
     }
+
+
+def spelling_params_from_jax_numpy(tree: dict,
+                                   device: str | torch.device | None = None) -> sp.SpellingCNN:
+    """A JAX ``models.spelling`` parameter tree (numpy leaves, HWIO
+    convolutions) -> the port's ``SpellingCNN`` on ``device`` (CUDA unless
+    named)."""
+    model = sp.SpellingCNN([_conv(b) for b in tree["blocks"]], _dense(tree["head"]))
+    return model.to(resolve_device(device))
+
+
+def spelling_params_to_numpy(model: sp.SpellingCNN) -> dict:
+    """The port's ``SpellingCNN`` -> a JAX-layout parameter tree."""
+    return {"blocks": [_conv_np(b) for b in model.blocks], "head": _dense_np(model.head)}
+
+
+def segmentation_params_from_jax_numpy(
+        tree: dict, device: str | torch.device | None = None) -> dm.Segmentation:
+    """A JAX diarization segmentation tree (numpy leaves, layers stacked on
+    a leading axis) -> the port's ``Segmentation`` on ``device``."""
+    depth = np.asarray(tree["layers"]["ln1"]["scale"]).shape[0]
+    model = dm.Segmentation(_conv(tree["conv1"]), _conv(tree["conv2"]),
+                            [_encoder_layer(lp) for lp in _unstack(tree["layers"], depth)],
+                            _norm(tree["norm"]), _dense(tree["head"]))
+    return model.to(resolve_device(device))
+
+
+def segmentation_params_to_numpy(model: dm.Segmentation) -> dict:
+    """The port's ``Segmentation`` -> a JAX-layout tree (layers stacked)."""
+    return {"conv1": _conv_np(model.conv1), "conv2": _conv_np(model.conv2),
+            "norm": _norm_np(model.norm),
+            "layers": _stack([_encoder_layer_np(lp) for lp in model.layers]),
+            "head": _dense_np(model.head)}
+
+
+def embedding_params_from_jax_numpy(tree: dict,
+                                    device: str | torch.device | None = None) -> dm.Embedding:
+    """A JAX speaker-embedding tree (numpy leaves) -> the port's
+    ``Embedding`` on ``device``."""
+    model = dm.Embedding(_conv(tree["conv1"]), _conv(tree["conv2"]), _conv(tree["conv3"]),
+                         _dense(tree["attn_pool"]), _dense(tree["proj"]))
+    return model.to(resolve_device(device))
+
+
+def embedding_params_to_numpy(model: dm.Embedding) -> dict:
+    """The port's ``Embedding`` -> a JAX-layout tree."""
+    return {"conv1": _conv_np(model.conv1), "conv2": _conv_np(model.conv2),
+            "conv3": _conv_np(model.conv3), "attn_pool": _dense_np(model.attn_pool),
+            "proj": _dense_np(model.proj)}
 
 
 # =========================================================================

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's decodes and streams.
 
-    python3 scripts/torch_profile.py [--decode greedy|w8a8|beam|speculative|transcriber|streaming|serving] [--batch N]
+    python3 scripts/torch_profile.py [--decode greedy|w8a8|beam|speculative|transcriber|streaming|serving|diarizer] [--batch N]
 
 Profiles the workload of one of ``chip_smoke.py``'s phases:
 ``chip_smoke.batched_workload`` (greedy, the default; batch 64; ``w8a8``:
@@ -24,6 +24,10 @@ untraced decoding updates, one decoding update and one ingest-only update,
 each with its decoder calls counted, the launches a decoder call and the
 share of device time in dtype copies (``direct_copy_kernel``: mostly the
 float upcasts of the int8 caches in ``ops/int8_kv.attention_dm_q8``).
+``diarizer`` traces one analysis step of ``chip_smoke.py [speakers and
+spelling]``'s diarizer (the API's seeds; 2 s of a synthetic two-speaker
+conversation after 30 s untraced: two 10 s windows segmented, their
+speakers embedded, the turns clustered again).
 Wall times include the profiler's own cost on the host.  Needs one CUDA device; the gzipped Chrome trace of the decode
 (or the stream) goes to chiprun_out/torch_profile_<decode>_trace.json.gz.
 """
@@ -193,18 +197,64 @@ def trace_serving() -> None:
           f"one's): {(launches['decoding update'] - launches['ingest-only update']) / max(decoder_calls, 1):.1f}")
 
 
+def trace_diarizer() -> None:
+    """The ``diarizer`` mode: one analysis step of a SpeakerDiarizer over
+    the segmentation and embedding models on the card."""
+    from chip_smoke import two_speaker_conversation
+    from moonshine_tpu_torch.models import diarization as dm
+    from moonshine_tpu_torch.pipeline.diarization import SpeakerDiarizer
+
+    seg = dm.init_segmentation_params(torch.Generator().manual_seed(2), device="cuda")
+    emb = dm.init_embedding_params(torch.Generator().manual_seed(3), device="cuda")
+    calls = []
+
+    def activities(batch):
+        calls.append(("segmentation_activations", len(batch)))
+        return dm.segmentation_activations(seg, torch.from_numpy(batch).cuda()).cpu().numpy()
+
+    def embeddings(batch, weights):
+        calls.append(("embedding_forward", len(batch)))
+        return dm.embedding_forward(emb, torch.from_numpy(batch).cuda(),
+                                    torch.from_numpy(weights).cuda()).cpu().numpy()
+
+    diarizer = SpeakerDiarizer(activities, embeddings)
+    audio, _ = two_speaker_conversation()
+    sid, piece = diarizer.create_stream(), 2 * SAMPLE_RATE
+    for i in range(0, 30 * SAMPLE_RATE, piece):
+        diarizer.add_audio(sid, audio[i:i + piece])
+    calls.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        diarizer.add_audio(sid, audio[30 * SAMPLE_RATE:32 * SAMPLE_RATE])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, rows = device_us(prof)
+    print(f"[diarizer] one analysis step after 30 s, model calls {calls}: wall "
+          f"{wall_us / 1e3:.3f} ms, kernels {busy / 1e3:.3f} ms, device idle share "
+          f"{1 - busy / wall_us:.3f}, {sum(e.count for e in rows)} kernel launches")
+    for e in rows[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    prof.export_chrome_trace(os.path.join("chiprun_out", "torch_profile_diarizer_trace.json.gz"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--decode", choices=("greedy", "w8a8", "beam", "speculative", "transcriber",
-                                         "streaming", "serving"), default="greedy")
+                                         "streaming", "serving", "diarizer"), default="greedy")
     ap.add_argument("--batch", type=int, default=None,
                     help="utterances (default 64 for greedy and w8a8, 128 for beam, 32 for "
                          "speculative; transcriber and streaming take 1; serving takes "
-                         "one cohort of 32 streams)")
+                         "one cohort of 32 streams; diarizer takes what its step gives)")
     args = ap.parse_args()
     resolve_device()  # raises without CUDA
     args.batch = args.batch or {"greedy": 64, "w8a8": 64, "beam": 128, "speculative": 32,
-                                "transcriber": 1, "streaming": 1, "serving": 32}[args.decode]
+                                "transcriber": 1, "streaming": 1, "serving": 32,
+                                "diarizer": 1}[args.decode]
+    if args.decode == "diarizer":
+        trace_diarizer()
+        print(torch.cuda.get_device_name(0))
+        return 0
     if args.decode == "serving":
         if args.batch != 32:
             ap.error("the serving workload is one cohort of 32 streams")

@@ -126,16 +126,26 @@ def test_transcriber_default_vad_runs_on_cpu(tokenizer_path):
 
 
 def test_transcriber_refuses_what_is_not_ported(tokenizer_path, tmp_path, monkeypatch):
-    """Speaker identification and spelling mode are not ported: asking for
-    them raises and names ROADMAP.md.  The real-weight VAD is ported: a
-    missing ``vad_weights=`` file raises, and no random VAD stands in."""
+    """Nothing of the JAX ``Transcriber`` is refused any more: speaker
+    identification and spelling mode load on the CPU, and a transcribed
+    two-speaker clip carries speakers.  A missing ``vad_weights=`` file
+    still raises (no random VAD stands in), and so does a missing
+    tokenizer."""
     with pytest.raises(FileNotFoundError):
         tapi.Transcriber(model=TCFG, tokenizer_path=tokenizer_path,
                          vad_weights=str(tmp_path / "vad.onnx"), device="cpu").load()
-    for option in ("identify_speakers", "spelling_mode"):
-        t = tapi.Transcriber(model=TCFG, tokenizer_path=tokenizer_path, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t.with_options(**{option: True}).load()
+    from chip_smoke import two_speaker_conversation
+
+    audio, _ = two_speaker_conversation(20.0, seed=0)
+    t = tapi.Transcriber(model=TCFG, tokenizer_path=tokenizer_path, device="cpu")
+    t.with_options(identify_speakers=True, vad_threshold=0).load()
+    assert t._pipeline.diarizer is not None
+    lines = t.transcribe(audio).lines
+    assert lines and all(line.speaker_spans for line in lines)
+    t = tapi.Transcriber(model=TCFG, tokenizer_path=tokenizer_path, device="cpu")
+    t.with_options(spelling_mode=True, vad_threshold=0).load()
+    assert t.options.spelling_mode and t._pipeline.spelling_matcher is not None
+    assert all(line.is_complete for line in t.transcribe(audio[:3 * 16000]).lines)
     # No tokenizer anywhere: neither a path, nor the catalog, nor its default.
     from moonshine_tpu_torch import catalog
 

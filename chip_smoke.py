@@ -47,7 +47,15 @@ turns held against a CPU diarizer with the same weights and audio; K1 runs
 in every encode) and ``[spelling]`` (the spelling CNN and ``SpellingOnnx``
 on an in-memory graph of SpellingCNN's contract, card against CPU, and a
 spelling-mode stream through the pipeline ``Transcriber`` with
-``spelling_params``). Every phase that
+``spelling_params``). Then the voice agent: ``[embeddings]``
+(EmbeddingGemma-300m at full width from a seed, card against CPU on
+phrases and a document in the 512 bucket; ``embed_tokens``' device time),
+``[agent]`` (a scripted conversation through ``AgentFlow`` over the card's
+and the CPU's embedder, and over a cached-embeddings TSV) and ``[tts and
+voice loop]`` (``TextToSpeech(language="en")`` at ``TTSConfig()``, card
+against CPU; then its speech through ``Transcriber(model="base")``, K1 in
+every encode, and the transcripts into an ``AgentFlow`` that speaks through
+``tts.say``). Every phase that
 fails ends the run with a non-zero exit. The last two lines of standard
 output are the kernels' JSON summary and the device JSON; a fuller record
 goes to chiprun_out/chip_smoke.json. Without CUDA, or without the rest of
@@ -954,6 +962,10 @@ def phase_sharded(ea, bg, cfg, draft_cfg, batch: int, card: str) -> dict:
         }
         for name, ok in checks.items():
             log(f"  {name}: {'bit-identical' if ok else 'DIFFER'}")
+        if not checks["encode pallas_shmap == auto"]:
+            diff = (full_memory.float() - ref_memory.float()).abs()
+            log(f"    memory: {int((diff > 0).sum())} of {diff.numel()} values differ, by at most "
+                f"{float(diff.max()):.3e}, in rows {sorted(set((diff > 0).nonzero()[:, 0].tolist()))[:16]}")
         atol, rtol = TOL[attn.dtype]
         k2_err = (attn.float() - k2_plain.float()).abs()
         checks["K2 sharded ~ plain"] = bool(
@@ -2100,6 +2112,393 @@ def phase_spelling(tokenizer_path: str, card: str, seed: int = 0) -> dict:
     return out
 
 
+# -- the voice agent: EmbeddingGemma, AgentFlow, TTS, and the loop ---------
+
+# Card against CPU, both float32 with TF32 off: EmbeddingGemma-300m's unit
+# vectors after 24 layers (a match score is their cosine), the TTS durations
+# after its 4-layer encoder and its waveform after 8 layers and the iSTFT
+# (values of at most about 0.1).  tests/test_torch_gemma.py and test_torch_tts.py
+# hold the port against JAX to the same limits on the CPU.
+EMBED_TOL = 1e-5
+DURATION_TOL = 1e-5
+WAVEFORM_TOL = 1e-4
+EMBED_SHAPES = ((1, 16), (1, 128), (1, 512), (64, 128))
+# [embeddings]' document: 450 bytes; with the document prefix and [bos],
+# [eos], 472 tokens of the byte tokenizer, in the 512 bucket.
+DOCUMENT = ("The voice agent listens for a trigger phrase, asks its questions aloud, and "
+            "matches each spoken answer against the phrases it expects by the cosine "
+            "similarity of their sentence embeddings. A yes or a no confirms an order; a "
+            "choice among drinks picks one option; a phrase that matches nothing is asked "
+            "again, and a silence past the timeout brings a reprompt. Cancel ends the flow at "
+            "once, and start over begins it again. The agent speaks every prompt.")
+TRIGGERS = ("order a drink", "take the survey")
+# After the trigger and a timeout: the Ask's answer, the Confirm's, the
+# Choose's, a second trigger, a cancel, the trigger again and its answer.
+CONVERSATION = ("alice", "yes", "espresso", "take the survey", "cancel", "take the survey",
+                "good")
+DRINKS = {"tea": ["a cuppa"], "coffee": ["espresso"]}
+
+
+class ByteTokenizer:
+    """One token a byte (ids 3-252), the tokenizer of the JAX package's
+    Gemma tests: EmbeddingGemma's tokenizer.bin is not in the repository."""
+
+    def text_to_tokens(self, text: str) -> list[int]:
+        return [3 + (b % 250) for b in text.encode()]
+
+
+def embedding_phrases() -> list[str]:
+    """The flow's default yes and no phrases and the two triggers: 20."""
+    from moonshine_tpu_torch.agent import flow
+
+    return list(flow._DEFAULT_YES) + list(flow._DEFAULT_NO) + list(TRIGGERS)
+
+
+def converse(flow_mod, embedder, cached_path=None) -> dict:
+    """The scripted conversation through ``flow_mod.AgentFlow`` (the port's
+    or the JAX package's ``agent/flow.py``) over ``embedder``, with a manual
+    timer: a trigger, an Ask with a timeout reprompt, a Confirm, a Choose,
+    a second flow cancelled and started again.  Returns the spoken prompts,
+    the flows' results, the lines no trigger took, and every phrase match
+    as (utterance, key, score, threshold)."""
+    timers, spoken, results, other, matches = [], [], [], [], []
+
+    class Timer:
+        def __init__(self, timeout, callback):
+            self.callback, self.cancelled = callback, False
+            timers.append(self)
+
+        def start(self):
+            pass
+
+        def cancel(self):
+            self.cancelled = True
+
+        def fire(self):
+            if not self.cancelled:
+                self.callback()
+
+    def order(d):
+        name = yield d.ask("what is your name?")
+        ok = yield d.confirm(f"order for {name}?")
+        drink = yield d.choose("which drink?", DRINKS)
+        results.append(("order", name, ok, drink))
+        yield d.say(f"one {drink} for {name}")
+
+    def survey(d):
+        results.append(("survey", (yield d.ask("how was it?"))))
+
+    agent = flow_mod.AgentFlow().use_embedder(embedder)
+    if cached_path is not None:
+        agent.with_cached_embeddings(cached_path)
+    agent.speak_with(spoken.append).timers_with(Timer).otherwise(other.append)
+    agent.listen_for(TRIGGERS[0], order).listen_for(TRIGGERS[1], survey).load()
+    matcher = flow_mod.PhraseMatcher
+    inner = matcher.match_with_score
+
+    def recording(self, utterance):
+        key, score = inner(self, utterance)
+        matches.append((utterance, key, float(score), self.threshold))
+        return key, score
+
+    matcher.match_with_score = recording
+    try:
+        agent.handle_utterance(TRIGGERS[0])
+        if timers:
+            timers[-1].fire()  # no answer: the reprompt
+        for utterance in CONVERSATION:
+            agent.handle_utterance(utterance)
+    finally:
+        matcher.match_with_score = inner
+    return {"spoken": spoken, "results": results, "otherwise": other, "matches": matches}
+
+
+def traced(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall, its kernels'
+    summed device time, the device's idle share and the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows)
+    return {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+            "launches": sum(e.count for e in rows)}
+
+
+def device_alone_ms(fn, runs: int = 7) -> dict:
+    """CUDA-event times of ``fn``: as the device sees the call (``ms``, the
+    host's enqueue included where it is the longer), and the device's work
+    alone (``device_ms``: the card spins longer than the enqueue takes
+    before each call), with the enqueue's host time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2_000_000 + 4e9 * enqueue_s)  # twice the enqueue at 2 GHz, and 1 ms
+    return {"ms": cuda_time_ms(fn, runs=runs),
+            "device_ms": cuda_time_ms(fn, runs=runs, before=lambda: torch.cuda._sleep(cycles)),
+            "enqueue_ms": enqueue_s * 1e3}
+
+
+def phase_embeddings(card: str, seed: int = 0) -> dict:
+    """EmbeddingGemma-300m at full width (``GemmaTextConfig()``) from a
+    seed, on the card and the same weights on the CPU: every phrase of
+    ``embedding_phrases()`` plain and with the query prefix, and DOCUMENT
+    with the document prefix (the 512 bucket), card against CPU within
+    EMBED_TOL.  Then ``embed_tokens``' device time at EMBED_SHAPES, one
+    [1, 16] call traced (idle share, launches), phrases/s through
+    ``get_embeddings`` and the peak memory."""
+    from moonshine_tpu_torch.models import gemma as gm
+
+    cfg = gm.GemmaTextConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cpu_model = gm.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    card_emb = gm.GemmaEmbedder(copy.deepcopy(cpu_model), cfg, ByteTokenizer(), device="cuda")
+    cpu_emb = gm.GemmaEmbedder(cpu_model, cfg, ByteTokenizer(), device="cpu")
+    build_s = time.perf_counter() - t0
+    if not all(p.is_cuda for p in card_emb.params.parameters()):
+        raise SystemExit("an EmbeddingGemma tensor is not on cuda")
+    n_params = sum(p.numel() for p in card_emb.params.parameters())
+    phrases = embedding_phrases()
+    calls = ([("phrase", p, lambda e, p=p: e.get_embeddings(p)) for p in phrases]
+             + [("query", p, lambda e, p=p: e.get_query_embeddings(p)) for p in phrases]
+             + [("document", DOCUMENT, lambda e: e.get_document_embeddings(DOCUMENT))])
+    errs, buckets = [], {}
+    for kind, text, fn in calls:
+        got, ref = fn(card_emb), fn(cpu_emb)
+        if got.shape != (cfg.embedding_dim,) or not np.isfinite(got).all() \
+                or abs(float(np.linalg.norm(got)) - 1.0) > 1e-5:
+            raise SystemExit(f"the {kind} embedding of {text[:30]!r} is not a unit "
+                             f"{cfg.embedding_dim}-vector")
+        errs.append(float(np.abs(got - ref).max()))
+        prefix = {"phrase": "", "query": gm.QUERY_PREFIX, "document": gm.DOCUMENT_PREFIX}[kind]
+        bucket = card_emb.batch(prefix + text)[0].shape[1]
+        buckets[bucket] = buckets.get(bucket, 0) + 1
+    err = max(errs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in phrases:
+        card_emb.get_embeddings(p)
+    phrases_per_s = len(phrases) / (time.perf_counter() - t0)
+
+    g = torch.Generator().manual_seed(seed + 1)
+    times = {}
+    for b, s in EMBED_SHAPES:
+        tokens = torch.randint(3, 253, (b, s), generator=g).cuda()
+        mask = torch.ones((b, s), dtype=torch.bool, device="cuda")
+        fn = lambda: gm.embed_tokens(card_emb.params, cfg, tokens, mask)
+        times[f"[{b}, {s}]"] = {**device_alone_ms(fn), **({"traced": traced(fn)} if (b, s) ==
+                                                           EMBED_SHAPES[0] else {})}
+    peak = torch.cuda.max_memory_allocated()
+    small = times["[1, 16]"]
+    out = {"params": n_params, "build_s": build_s, "embeddings": len(calls),
+           "buckets": buckets, "max_abs_err": err, "tol": EMBED_TOL,
+           "phrases_per_s": phrases_per_s, "embed_tokens": times, "peak_bytes": peak}
+    log(f"  EmbeddingGemma-300m ({n_params / 1e6:.1f} M parameters, {cfg.num_layers} layers, "
+        f"width {cfg.hidden_size}) "
+        f"built on cpu and cuda in {build_s:.2f} s; {len(calls)} embeddings (buckets "
+        f"{dict(sorted(buckets.items()))}): card against cpu max_abs_err {err:.3e} (tolerance "
+        f"{EMBED_TOL:g}); {phrases_per_s:.1f} phrases/s through get_embeddings; peak "
+        f"{peak / 1e9:.3f} GB on {card}")
+    log("  embed_tokens device ms (CUDA events, median of 7; the call as the device sees it / "
+        "the device alone / the host's enqueue): " + "; ".join(
+            f"{k} {v['ms']:.4f} / {v['device_ms']:.4f} / {v['enqueue_ms']:.3f}"
+            for k, v in times.items()))
+    log(f"  one [1, 16] call traced: wall {small['traced']['wall_ms']:.3f} ms, kernels "
+        f"{small['traced']['device_ms']:.3f} ms, idle share {small['traced']['idle_share']:.3f}, "
+        f"{small['traced']['launches']} launches; by events, idle share "
+        f"{1 - small['device_ms'] / small['ms']:.3f}")
+    if err > EMBED_TOL:
+        raise SystemExit("EmbeddingGemma on the card disagrees with the CPU's")
+    if 512 not in buckets:
+        raise SystemExit("the document did not land in the 512 bucket")
+    out["embedders"] = (card_emb, cpu_emb)
+    return out
+
+
+def phase_agent(card_emb, cpu_emb, root: str) -> dict:
+    """The scripted conversation (``converse``) on an AgentFlow over the
+    card's embedder and on one over the CPU's: the same prompts, results
+    and matched keys, every score within EMBED_TOL and printed with its
+    margin to its threshold.  Then the conversation's constant phrases as
+    a cached-embeddings TSV built on the card, reloaded: the same
+    decisions."""
+    from moonshine_tpu_torch.agent import cached_embeddings as ce
+    from moonshine_tpu_torch.agent import flow
+
+    t0 = time.perf_counter()
+    card_run = converse(flow, card_emb)
+    card_s = time.perf_counter() - t0
+    cpu_run = converse(flow, cpu_emb)
+    keys = lambda run: [(u, k, th) for u, k, _, th in run["matches"]]
+    same = all(card_run[k] == cpu_run[k] for k in ("spoken", "results", "otherwise")) \
+        and keys(card_run) == keys(cpu_run)
+    score_err = max(abs(a[2] - b[2]) for a, b in zip(card_run["matches"], cpu_run["matches"]))
+    log(f"  conversation on cuda ({card_s:.2f} s), {len(card_run['matches'])} phrase matches:")
+    for u, k, s, th in card_run["matches"]:
+        log(f"    {u!r} -> {k} score {s:.6f}, threshold {th:g}, margin {s - th:+.6f}")
+    log(f"  spoken: {card_run['spoken']}")
+    log(f"  results: {card_run['results']}; lines no trigger took: {card_run['otherwise']}")
+    log(f"  card against cpu: the same prompts, results and keys {same}; scores max_abs_err "
+        f"{score_err:.3e} (tolerance {EMBED_TOL:g})")
+    if not same or score_err > EMBED_TOL:
+        raise SystemExit("the agent over the card's embedder decides otherwise than the CPU's")
+    expected = ["what is your name?", "Sorry, I didn't catch that. what is your name?",
+                "order for alice?", "which drink?", "one coffee for alice", "how was it?",
+                "how was it?"]
+    if card_run["spoken"] != expected or card_run["results"] != [
+            ("order", "alice", True, "coffee"), ("survey", "good")]:
+        raise SystemExit("the scripted conversation took another path")
+
+    phrases = sorted({*TRIGGERS, *flow._DEFAULT_YES, *flow._DEFAULT_NO, "cancel", "start over",
+                      *DRINKS, *(p for v in DRINKS.values() for p in v)})
+    path = os.path.join(root, "agent_phrases.tsv")
+    built = ce.build_cached_embeddings(card_emb, phrases, path, {"model_name": "random gemma"})
+    loaded, meta = ce.load_cached_embeddings(path)
+    tsv_exact = all(np.array_equal(loaded[p], built[p]) for p in phrases)
+    cached_run = converse(flow, card_emb, cached_path=path)
+    cached_same = all(cached_run[k] == card_run[k] for k in ("spoken", "results", "otherwise")) \
+        and keys(cached_run) == keys(card_run)
+    log(f"  cached embeddings: {len(phrases)} phrases to a TSV on cuda ({meta}), read back "
+        f"exactly {tsv_exact}; the conversation on the cache decides the same {cached_same}")
+    if not (tsv_exact and cached_same):
+        raise SystemExit("the cached-embeddings TSV changed the agent's decisions")
+    return {"matches": card_run["matches"], "spoken": card_run["spoken"],
+            "score_max_abs_err": score_err, "conversation_s": card_s,
+            "cached_phrases": len(phrases)}
+
+
+def phase_voice_loop(ea, tokenizer_path: str, card_emb, card: str, seed: int = 0) -> dict:
+    """``TextToSpeech(language="en").load()`` (``TTSConfig()``) on the card
+    over ``tts_intelligibility.DEFAULT_SENTENCES``, and the same weights and
+    voice on the CPU: ``n_frames`` equal, durations within DURATION_TOL,
+    waveforms within WAVEFORM_TOL.  The real-time factor, one synthesis's
+    device time and launches.  Then the loop: ``evaluate(tts.synthesize,
+    transcribe)`` through ``Transcriber(model="base")`` on the card (the
+    24 kHz audio resampled inside ``transcribe``; K1 in every encode; the
+    VAD off, ``vad_threshold=0``, as a random-weight VAD hears no speech in
+    random-weight speech), each
+    transcript fed to an AgentFlow that speaks through ``tts.say``, and the
+    reference sentences after them as the flows' triggers.  The CER is
+    printed, not held (random weights)."""
+    from moonshine_tpu_torch import Transcriber
+    from moonshine_tpu_torch.agent import flow
+    from moonshine_tpu_torch.eval import tts_intelligibility as ti
+    from moonshine_tpu_torch.models import tts as tm
+    from moonshine_tpu_torch.tts.facade import TextToSpeech
+
+    played = []
+    tts = TextToSpeech(language="en", seed=seed).play_with(
+        lambda wav, sr: played.append((len(wav), sr))).load()
+    if tts.device.type != "cuda" or not all(p.is_cuda for p in tts.params.parameters()):
+        raise SystemExit("the TextToSpeech model is not on cuda")
+    voice = tts.voices[tts._voice_name]
+    cpu_tts = TextToSpeech(
+        params=tm.init_params(tts.cfg, torch.Generator().manual_seed(seed), "cpu"),
+        device="cpu").load({tts._voice_name: voice})
+    rows, synth_walls, audio_s = [], [], 0.0
+    for text in ti.DEFAULT_SENTENCES:
+        ipa = tts._g2p.text_to_ipa(text)
+        (ph, n), (ph_cpu, _) = tts.phoneme_batch(ipa), cpu_tts.phoneme_batch(ipa)
+        style = torch.from_numpy(np.asarray(voice, np.float32))
+        got = tm.synthesize(tts.params, tts.cfg, ph, n, style.cuda())
+        ref = tm.synthesize(cpu_tts.params, cpu_tts.cfg, ph_cpu, n, style)
+        ends = float(ref.durations.cumsum(0)[-1])
+        rows.append({"text": text, "phonemes": n, "n_frames": int(got.n_frames),
+                     "cpu_n_frames": int(ref.n_frames),
+                     "durations_err": float((got.durations.cpu() - ref.durations).abs().max()),
+                     "waveform_err": float((got.waveform.cpu() - ref.waveform).abs().max()),
+                     "ends_margin": abs(ends - (np.floor(ends) + 0.5))})
+        t0 = time.perf_counter()
+        wav, sr = tts.synthesize(text)
+        synth_walls.append(time.perf_counter() - t0)
+        audio_s += len(wav) / sr
+        if not np.isfinite(wav).all() or len(wav) != int(got.n_frames) * tm.HOP:
+            raise SystemExit(f"the synthesis of {text!r} is not finite or not its frames' length")
+    rtf = sum(synth_walls) / audio_s
+    ph, n = tts.phoneme_batch(tts._g2p.text_to_ipa(ti.DEFAULT_SENTENCES[0]))
+    style = torch.from_numpy(np.asarray(voice, np.float32)).cuda()
+    synth = lambda: tm.synthesize(tts.params, tts.cfg, ph, n, style)
+    synth_ms = {**device_alone_ms(synth), "traced": traced(synth)}
+    same_frames = all(r["n_frames"] == r["cpu_n_frames"] for r in rows)
+    dur_err = max(r["durations_err"] for r in rows)
+    wav_err = max(r["waveform_err"] for r in rows)
+    log(f"  TTSConfig() on cuda, {len(rows)} sentences, {audio_s:.3f} s of 24 kHz audio in "
+        f"{sum(synth_walls):.3f} s: real-time factor {rtf:.4f} (wall of synthesize over audio "
+        f"seconds) on {card}")
+    for r in rows:
+        log(f"    {r['text']!r}: {r['phonemes']} phonemes, {r['n_frames']} frames (cpu "
+            f"{r['cpu_n_frames']}), ends[-1] {r['ends_margin']:.6f} from the nearest half, "
+            f"durations err {r['durations_err']:.3e}, waveform err {r['waveform_err']:.3e}")
+    log(f"  one synthesize (sentence 1): {synth_ms['ms']:.4f} ms as the device sees it, "
+        f"{synth_ms['device_ms']:.4f} ms device alone, enqueue {synth_ms['enqueue_ms']:.3f} ms; "
+        f"traced: wall {synth_ms['traced']['wall_ms']:.3f} ms, kernels "
+        f"{synth_ms['traced']['device_ms']:.3f} ms, idle share "
+        f"{synth_ms['traced']['idle_share']:.3f}, {synth_ms['traced']['launches']} launches")
+    log(f"  card against cpu: n_frames equal {same_frames}, durations max_abs_err {dur_err:.3e} "
+        f"(tolerance {DURATION_TOL:g}), waveforms {wav_err:.3e} (tolerance {WAVEFORM_TOL:g})")
+    if not same_frames or dur_err > DURATION_TOL or wav_err > WAVEFORM_TOL:
+        raise SystemExit("the TTS on the card disagrees with the CPU's")
+
+    tr = Transcriber(model="base", tokenizer_path=tokenizer_path).with_options(
+        vad_threshold=0).load()
+    if tr.device.type != "cuda":
+        raise SystemExit("the loop's Transcriber is not on cuda")
+
+    def transcribe(wav: np.ndarray, sr: int) -> str:
+        return " ".join(line.text or "" for line in tr.transcribe(wav, sr).lines)
+
+    said = []
+
+    def flow_for(sentence):
+        def run(d):
+            yield d.say(f"you said {sentence}")
+        return run
+
+    agent = flow.AgentFlow().use_embedder(card_emb).speak_with(
+        lambda text: (said.append(text), tts.say(text))).otherwise(
+        lambda text: said.append(None))
+    for sentence in ti.DEFAULT_SENTENCES:
+        agent.listen_for(sentence, flow_for(sentence))
+    agent.load()
+    played.clear()
+    launches0 = ea.encoder_attention_packed.launches
+    t0 = time.perf_counter()
+    res = ti.evaluate(tts.synthesize, transcribe)
+    for _, hyp, _ in res.per_sentence:
+        agent.handle_utterance(hyp)
+    for sentence in ti.DEFAULT_SENTENCES:
+        agent.handle_utterance(sentence)
+    tts.wait()
+    loop_s = time.perf_counter() - t0
+    tts.stop()
+    k1 = ea.encoder_attention_packed.launches - launches0
+    spoken = [s for s in said if s is not None]
+    log(f"  loop: {len(res.per_sentence)} sentences synthesized, transcribed by base on cuda and "
+        f"fed to the agent in {loop_s:.3f} s; K1 {k1} launches; {res.summary()} (random weights, "
+        f"not held)")
+    for ref_text, hyp, c in res.per_sentence:
+        log(f"    {c * 100:6.1f}%  {ref_text!r} -> {hyp[:60]!r}")
+    log(f"  the agent spoke {len(spoken)} prompts through tts.say ({len(played)} played), "
+        f"{said.count(None)} lines took no trigger")
+    if not k1:
+        raise SystemExit("K1 did not launch in the voice loop")
+    if len(spoken) < len(ti.DEFAULT_SENTENCES) or len(played) != len(spoken):
+        raise SystemExit("the agent's prompts were not all spoken through tts.say")
+    return {"sentences": rows, "rtf": rtf, "audio_s": audio_s, "synthesize": synth_ms,
+            "durations_max_abs_err": dur_err, "waveform_max_abs_err": wav_err,
+            "cer": res.cer, "loop_s": loop_s, "k1_launches": k1, "agent_spoken": len(spoken),
+            "played": len(played)}
+
+
 def gather_entry(name: str, replaces: str, launches: int, max_err: float, t: dict,
                  extra: dict | None = None) -> dict:
     return {"name": name, "route": "cuda", "source": "moonshine_tpu_torch/csrc/beam_gather.cu",
@@ -2237,6 +2636,28 @@ def main() -> int:
         log(f"  kernel launches: {speaker_launches}")
         if not speaker_launches["speakers and spelling"]["encoder_attention_packed"]:
             raise SystemExit("K1 did not launch on the speaker-identifying path")
+        # The voice agent: EmbeddingGemma, the TTS model and the G2P
+        # transformer are XLA code in the JAX package (no Pallas); the
+        # loop's ASR runs K1 in every encode.
+        log("[embeddings] EmbeddingGemma-300m at full width on cuda, card against cpu")
+        t_voice = time.perf_counter()
+        reset_launches(ea, bg)
+        embeddings = phase_embeddings(card)
+        card_emb, cpu_emb = embeddings.pop("embedders")
+        voice_launches = {"embeddings": kernel_launches(ea, bg)}
+        log("[agent] AgentFlow over the card's and the cpu's embedder")
+        reset_launches(ea, bg)
+        agent = phase_agent(card_emb, cpu_emb, tmp)
+        voice_launches["agent"] = kernel_launches(ea, bg)
+        del cpu_emb
+        log("[tts and voice loop] TextToSpeech on cuda; TTS -> Transcriber(model='base') -> agent")
+        reset_launches(ea, bg)
+        voice = phase_voice_loop(ea, tok_path, card_emb, card)
+        voice_launches["voice loop"] = kernel_launches(ea, bg)
+        del card_emb
+        voice["phases_s"] = time.perf_counter() - t_voice
+        log(f"  kernel launches: {voice_launches}; the three voice-agent phases took "
+            f"{voice['phases_s']:.1f} s")
 
     k3, k4 = gather_times["K3 int8"], gather_times["K4"]
     k3_bf16 = gather_times["K3 bf16"]
@@ -2263,7 +2684,8 @@ def main() -> int:
 
     def on_counted_paths(kernel: str) -> dict:
         return {path: counts[kernel]
-                for path, counts in {**serving_launches, **speaker_launches}.items()}
+                for path, counts in {**serving_launches, **speaker_launches,
+                                     **voice_launches}.items()}
 
     k1_by_path.update(on_counted_paths("encoder_attention_packed"))
     kernels = [{
@@ -2317,6 +2739,8 @@ def main() -> int:
               "serving_reference": serving_ref, "serving_vad": serving_vad,
               "streaming_bench": streaming_bench, "serving_launches": serving_launches,
               "speakers": speakers, "spelling": spelling, "speaker_launches": speaker_launches,
+              "embeddings": embeddings, "agent": agent, "voice_loop": voice,
+              "voice_launches": voice_launches,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -16,8 +16,9 @@ Two sources of weights:
   kernels ``[k, in, out]`` (WIO).  ``params_from_jax_numpy`` and
   ``params_to_numpy`` convert in both directions, exec-quantized
   ``w_q``/``w_scale`` leaves included; the VAD, spelling CNN (HWIO
-  ``[kh, kw, in, out]`` kernels) and diarization models have their own
-  ``*_from_jax_numpy`` / ``*_to_numpy`` pairs.  They take the tree as numpy
+  ``[kh, kw, in, out]`` kernels), diarization, Gemma, TTS and G2P
+  transformer models have their own ``*_from_jax_numpy`` /
+  ``*_to_numpy`` pairs.  They take the tree as numpy
   arrays (a caller that has JAX passes ``jax.tree.map(np.asarray,
   params)``; the port itself never imports JAX).
 
@@ -42,7 +43,10 @@ from .models import moonshine as mm
 from .models import streaming as ms
 from .models import vad as vad_mod
 from .models import diarization as dm
+from .models import gemma as gm
 from .models import spelling as sp
+from .models import tts as tts_mod
+from .tts import g2p_transformer as g2pt
 from .models.layers import Conv1d, Conv2d, Dense, Norm
 
 
@@ -271,6 +275,140 @@ def embedding_params_to_numpy(model: dm.Embedding) -> dict:
             "proj": _dense_np(model.proj)}
 
 
+def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested tree of dicts and lists -> ``{"a/0/b": leaf}``, the names
+    the JAX package gives ``tree_flatten_with_path`` paths in its
+    artifacts (dict keys, list indices)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
+    """``flatten_tree``'s inverse: ``a/0/b`` names -> nested dicts, with
+    the all-numeric levels as lists."""
+    tree: dict = {}
+    for name, arr in flat.items():
+        node = tree
+        *parents, leaf = name.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+_GEMMA_NORMS = ("input_norm", "q_norm", "k_norm", "post_attn_norm", "pre_ffw_norm",
+                "post_ffw_norm")
+_GEMMA_DENSE = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def _gemma_layer(lp: dict) -> gm.GemmaLayer:
+    return gm.GemmaLayer(**{k: Norm(_tensor(lp[k])) for k in _GEMMA_NORMS},
+                         **{k: _dense(lp[k]) for k in _GEMMA_DENSE})
+
+
+def gemma_params_from_jax_numpy(tree: dict, device: str | torch.device | None = None) -> gm.Gemma:
+    """A JAX ``models.gemma`` tree (numpy leaves, layers stacked on a
+    leading axis; norms are bare ``(1 + w)`` gain vectors) -> the port's
+    ``Gemma`` on ``device``.  ``proj1``/``proj2`` stay absent where the
+    tree has none."""
+    depth = np.asarray(tree["layers"]["input_norm"]).shape[0]
+    layers = [_gemma_layer(lp) for lp in _unstack(tree["layers"], depth)]
+    proj = [_dense(tree[k]) if k in tree else None for k in ("proj1", "proj2")]
+    model = gm.Gemma(_tensor(tree["embed"]), layers, Norm(_tensor(tree["final_norm"])), *proj)
+    return model.to(resolve_device(device))
+
+
+def gemma_params_to_numpy(model: gm.Gemma) -> dict:
+    """The port's ``Gemma`` -> a JAX-layout tree (layers stacked)."""
+    layers = [{**{k: _numpy(getattr(lp, k).weight) for k in _GEMMA_NORMS},
+               **{k: _dense_np(getattr(lp, k)) for k in _GEMMA_DENSE}} for lp in model.layers]
+    out = {"embed": _numpy(model.embed), "layers": _stack(layers),
+           "final_norm": _numpy(model.final_norm.weight)}
+    for k in ("proj1", "proj2"):
+        if getattr(model, k) is not None:
+            out[k] = _dense_np(getattr(model, k))
+    return out
+
+
+def tts_params_from_jax_numpy(tree: dict, device: str | torch.device | None = None) -> tts_mod.TTS:
+    """A JAX ``models.tts`` tree (numpy leaves, layers stacked) -> the
+    port's ``TTS`` on ``device``."""
+    def layers(part: dict) -> list:
+        depth = np.asarray(part["layers"]["ln1"]["scale"]).shape[0]
+        return [_encoder_layer(lp) for lp in _unstack(part["layers"], depth)]
+
+    enc, dec = tree["encoder"], tree["decoder"]
+    model = tts_mod.TTS(_tensor(tree["embed"]), _dense(tree["style_proj"]), layers(enc),
+                        _norm(enc["norm"]), _dense(tree["duration"]["fc1"]),
+                        _dense(tree["duration"]["fc2"]), layers(dec), _norm(dec["norm"]),
+                        _dense(tree["head_mag"]), _dense(tree["head_phase"]))
+    return model.to(resolve_device(device))
+
+
+def tts_params_to_numpy(model: tts_mod.TTS) -> dict:
+    """The port's ``TTS`` -> a JAX-layout tree (layers stacked)."""
+    def part(layers, norm) -> dict:
+        return {"layers": _stack([_encoder_layer_np(lp) for lp in layers]),
+                "norm": _norm_np(norm)}
+
+    return {"embed": _numpy(model.embed), "style_proj": _dense_np(model.style_proj),
+            "encoder": part(model.encoder_layers, model.encoder_norm),
+            "duration": {"fc1": _dense_np(model.duration_fc1),
+                         "fc2": _dense_np(model.duration_fc2)},
+            "decoder": part(model.decoder_layers, model.decoder_norm),
+            "head_mag": _dense_np(model.head_mag), "head_phase": _dense_np(model.head_phase)}
+
+
+_G2P_NORMS = ("ln1", "ln2", "ln_x")
+_G2P_DENSE = ("qkv", "attn_out", "fc1", "fc2", "x_q", "x_kv", "x_out")
+
+
+def _g2p_block(p: dict) -> g2pt.G2PBlock:
+    return g2pt.G2PBlock(**{k: _norm(p[k]) for k in _G2P_NORMS if k in p},
+                         **{k: _dense(p[k]) for k in _G2P_DENSE if k in p})
+
+
+def g2p_params_from_jax_numpy(tree: dict,
+                              device: str | torch.device | None = None) -> g2pt.G2PModel:
+    """A JAX ``tts.g2p_transformer`` tree (numpy leaves; ``enc`` and
+    ``dec`` are lists of blocks) -> the port's ``G2PModel`` on ``device``."""
+    model = g2pt.G2PModel(*(_tensor(tree[k]) for k in ("in_embed", "in_pos", "out_embed",
+                                                       "out_pos")),
+                          [_g2p_block(b) for b in tree["enc"]],
+                          [_g2p_block(b) for b in tree["dec"]], _norm(tree["ln_f"]),
+                          _dense(tree["head"]))
+    return model.to(resolve_device(device))
+
+
+def g2p_params_to_numpy(model: g2pt.G2PModel) -> dict:
+    """The port's ``G2PModel`` -> a JAX-layout tree."""
+    def block(b: g2pt.G2PBlock) -> dict:
+        out = {k: _norm_np(getattr(b, k)) for k in _G2P_NORMS if getattr(b, k) is not None}
+        out.update({k: _dense_np(getattr(b, k)) for k in _G2P_DENSE if getattr(b, k) is not None})
+        return out
+
+    return {**{k: _numpy(getattr(model, k)) for k in ("in_embed", "in_pos", "out_embed",
+                                                      "out_pos")},
+            "enc": [block(b) for b in model.enc], "dec": [block(b) for b in model.dec],
+            "ln_f": _norm_np(model.ln_f), "head": _dense_np(model.head)}
+
+
 # =========================================================================
 # safetensors, read without the safetensors package
 # =========================================================================
@@ -285,18 +423,24 @@ def load_safetensors(path: str | os.PathLike) -> dict[str, np.ndarray]:
     """Every tensor of a ``.safetensors`` file as a numpy array.
 
     The format: an 8-byte little-endian header length, a JSON header
-    mapping each name to its dtype, shape and byte range, then the raw
-    little-endian data.  BF16 tensors come back as float32 (exact: a bf16
-    value is the top half of a float32).
+    mapping each name to its dtype, shape and byte range (and an optional
+    ``__metadata__`` map of strings), then the raw little-endian data.
+    BF16 tensors come back as float32 (exact: a bf16 value is the top half
+    of a float32).
     """
+    return load_safetensors_with_metadata(path)[0]
+
+
+def load_safetensors_with_metadata(
+        path: str | os.PathLike) -> tuple[dict[str, np.ndarray], dict[str, str]]:
+    """``load_safetensors`` and the header's ``__metadata__`` ({} if none)."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
         data = f.read()
+    metadata = dict(header.pop("__metadata__", None) or {})
     out = {}
     for name, info in header.items():
-        if name == "__metadata__":
-            continue
         start, end = info["data_offsets"]
         shape = tuple(info["shape"])
         raw = data[start:end]
@@ -308,16 +452,23 @@ def load_safetensors(path: str | os.PathLike) -> dict[str, np.ndarray]:
         else:
             raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {info['dtype']}")
         out[name] = arr.reshape(shape)
-    return out
+    return out, metadata
 
 
 _SAFETENSORS_NAMES = {np.dtype(v): k for k, v in _SAFETENSORS_DTYPES.items()}
 
 
-def save_safetensors(path: str | os.PathLike, tensors: Mapping[str, np.ndarray]) -> None:
+def save_safetensors(path: str | os.PathLike, tensors: Mapping[str, np.ndarray],
+                     metadata: Mapping[str, str] | None = None) -> None:
     """Write numpy arrays as a ``.safetensors`` file (the layout
-    ``load_safetensors`` reads; float32, float16 and the integer types)."""
+    ``load_safetensors`` reads; float32, float16 and the integer types),
+    with ``metadata`` (strings to strings) as the header's
+    ``__metadata__``."""
     header, chunks, offset = {}, [], 0
+    if metadata:
+        if not all(isinstance(k, str) and isinstance(v, str) for k, v in metadata.items()):
+            raise TypeError("safetensors metadata maps strings to strings")
+        header["__metadata__"] = dict(metadata)
     for name, arr in tensors.items():
         arr = np.ascontiguousarray(arr)
         data = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
@@ -441,6 +592,42 @@ def import_hf_moonshine(
                    _sd(Norm, sd, f"{dec}.norm", dtype)),
     )
     return mm.prepare_rotary_params(model, cfg).to(resolve_device(device))
+
+
+def import_hf_gemma3_text(sd: Mapping[str, np.ndarray] | str | os.PathLike, cfg: gm.GemmaTextConfig,
+                          dtype: torch.dtype = torch.float32,
+                          device: str | torch.device | None = None) -> gm.Gemma:
+    """An HF ``Gemma3TextModel`` state dict (or ``.safetensors`` file) ->
+    the port's ``Gemma`` on ``device`` (CUDA unless named).
+
+    Where any key starts with ``model.``, only those keys are kept, without
+    the prefix.  The sentence-transformers head (``dense1.weight``,
+    ``dense2.weight``) is not part of the HF text model: ``proj1`` and
+    ``proj2`` are read where those keys are, and stay absent otherwise.
+    """
+    sd = _as_state_dict(sd)
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+
+    def t(k: str) -> torch.Tensor:
+        return _tensor(np.asarray(sd[k])).to(dtype)
+
+    def layer(i: int) -> gm.GemmaLayer:
+        pre = f"layers.{i}"
+        att, mlp = f"{pre}.self_attn", f"{pre}.mlp"
+        return gm.GemmaLayer(
+            Norm(t(f"{pre}.input_layernorm.weight")),
+            *(Dense(t(f"{att}.{n}_proj.weight")) for n in ("q", "k", "v", "o")),
+            Norm(t(f"{att}.q_norm.weight")), Norm(t(f"{att}.k_norm.weight")),
+            Norm(t(f"{pre}.post_attention_layernorm.weight")),
+            Norm(t(f"{pre}.pre_feedforward_layernorm.weight")),
+            *(Dense(t(f"{mlp}.{n}_proj.weight")) for n in ("gate", "up", "down")),
+            Norm(t(f"{pre}.post_feedforward_layernorm.weight")))
+
+    proj = [Dense(t(k)) if k in sd else None for k in ("dense1.weight", "dense2.weight")]
+    model = gm.Gemma(t("embed_tokens.weight"), [layer(i) for i in range(cfg.num_layers)],
+                     Norm(t("norm.weight")), *proj)
+    return model.to(resolve_device(device))
 
 
 def export_hf_moonshine(model: mm.Moonshine) -> dict[str, np.ndarray]:

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu import api as japi
 from moonshine_tpu import catalog as jcatalog
 from moonshine_tpu.core.config import MoonshineArchConfig

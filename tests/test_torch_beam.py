@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 import torch_xla_reference
 from moonshine_tpu.core.config import MoonshineArchConfig
 from moonshine_tpu.decoding.beam import beam_decode as jax_beam

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from chip_smoke import Recorder, linkage_margin, two_speaker_conversation
 from moonshine_tpu.core.config import TranscriberOptions as JaxOptions
 from moonshine_tpu.core.config import VadOptions as JaxVadOptions

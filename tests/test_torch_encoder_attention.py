@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu_torch.ops import encoder_attention as ea
 
 F32 = dict(atol=2e-5, rtol=1e-4)

@@ -14,6 +14,7 @@ import jax
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu.audio.wav import save_wav
 from moonshine_tpu.core.config import MoonshineArchConfig
 from moonshine_tpu.core.tokenizer import BinTokenizer

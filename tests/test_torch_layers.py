@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu.models import layers as jl
 from moonshine_tpu.ops import int8_kv as jq
 from moonshine_tpu.ops import rotary as jr

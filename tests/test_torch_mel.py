@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from chip_smoke import tinyvad_graph
 from moonshine_tpu.models.vad import TinyVad as JaxTinyVad
 from moonshine_tpu.ops import mel as jmel

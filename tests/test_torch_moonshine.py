@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu.core.config import BASE, MoonshineArchConfig
 from moonshine_tpu.decoding.greedy import greedy_decode as jax_greedy
 from moonshine_tpu.models import moonshine as jm

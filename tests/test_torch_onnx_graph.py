@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu.ops.onnx_graph import execute as jax_execute
 from moonshine_tpu_torch.core.onnx_io import OnnxGraph, OnnxNode
 from moonshine_tpu_torch.ops import onnx_graph as tog

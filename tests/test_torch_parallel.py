@@ -30,6 +30,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import torch_parallel_ranks
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu.core.config import MoonshineArchConfig
 from moonshine_tpu.decoding.greedy import greedy_decode as jax_greedy
 from moonshine_tpu.models import moonshine as jm

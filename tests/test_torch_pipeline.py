@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu import api as japi
 from moonshine_tpu.core.config import MoonshineArchConfig, TranscriberOptions
 from moonshine_tpu.core.tokenizer import BinTokenizer

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu import quant as jquant
 from moonshine_tpu.core.config import MoonshineArchConfig, StreamingConfig
 from moonshine_tpu.decoding.greedy import greedy_decode as jax_greedy

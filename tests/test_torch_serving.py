@@ -25,6 +25,7 @@ import torch
 
 from chip_smoke import tinyvad_graph
 import torch_xla_reference
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu import serving as jserving
 from moonshine_tpu.core.config import StreamingConfig
 from moonshine_tpu.models import streaming as jms

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu.core.config import MoonshineArchConfig
 from moonshine_tpu.decoding import speculative as jspec
 from moonshine_tpu.models import moonshine as jm

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from chip_smoke import spelling_graph
 from moonshine_tpu.agent import alphanumeric as jagent
 from moonshine_tpu.core.config import TranscriberOptions as JaxOptions

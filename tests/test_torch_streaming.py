@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu.core.config import StreamingConfig, TranscriberOptions, VadOptions
 from moonshine_tpu.core.tokenizer import BinTokenizer
 from moonshine_tpu.models import streaming as jms

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 import torch_xla_reference
+from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu.core.config import StreamingConfig
 from moonshine_tpu.models import streaming as jms
 from moonshine_tpu.models import streaming_batch as jsb

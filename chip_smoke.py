@@ -55,7 +55,17 @@ and the CPU's embedder, and over a cached-embeddings TSV) and ``[tts and
 voice loop]`` (``TextToSpeech(language="en")`` at ``TTSConfig()``, card
 against CPU; then its speech through ``Transcriber(model="base")``, K1 in
 every encode, and the transcripts into an ``AgentFlow`` that speaks through
-``tts.say``). Every phase that
+``tts.say``). Then the code-only and published-pack voices and voice
+cloning: ``[klatt]`` (``TextToSpeech().voice("klatt")`` and ``KlattTTS``,
+card against CPU), ``[neural pack decoder and worldlite]`` (``TfliteExecutor``
+over an in-memory graph of the voice pack decoder's contract, all tiles in
+one batch, then ``worldlite.render`` of 3 s with injected noise, card
+against CPU; ``NeuralPackTTS`` itself waits for the pack), ``[voice
+clone]`` (a ``VoiceClone`` capture of the TTS's speech, its word times
+from ``Transcriber(model="base")``, K1 in every encode, then
+``VoiceCloner()`` with the iSTFT head and an ``OnnxVocoder``, card against
+CPU on the same latent) and ``[tok_pos]`` (``TokPosTagger``, card against
+CPU). Every phase that
 fails ends the run with a non-zero exit. The last two lines of standard
 output are the kernels' JSON summary and the device JSON; a fuller record
 goes to chiprun_out/chip_smoke.json. Without CUDA, or without the rest of
@@ -2033,6 +2043,126 @@ def spelling_graph(seed: int = 0):
                      outputs=[("logits", ["batch", 51])])
 
 
+# The voice pack's decoder: latents of 64 values in tiles of PACK_TILE
+# latents, 4 frames of 60 rows (48 log10 envelope knots, 12 aperiodicity
+# bands) a latent (tts/neural_pack.py).  The pack itself, and with it its
+# tile size, is not in the repository.
+PACK_LATENT_DIM = 64
+PACK_TILE = 16
+
+
+def pack_decoder_graph(seed: int = 0):
+    """An in-memory TFLite graph of the voice pack decoder's contract (the
+    real s16x8 graph is not in the repository): input ``[1, PACK_TILE,
+    64]`` latents, output ``[1, 4 * PACK_TILE, 60]`` frames, quantized as
+    the pack's graph is (int8 per-channel weights, int64 biases and int16
+    constants with their scales).  RESHAPE to NHWC rows, CONV_2D 1x3 and
+    exact GELU, TRANSPOSE_CONV 1x8 at stride 4 with a fused ReLU,
+    TRANSPOSE_CONV 1x4 at stride 2, tanh GELU, CONV_2D 1x3 at stride 2
+    (XLA's uneven SAME padding), MUL and ADD by constants, two TRANSPOSEs
+    and a RESHAPE back.  The port's CPU tests run the same graph."""
+    from moonshine_tpu_torch.core.tflite_io import TfliteModel, TfliteOp, TfliteTensor
+
+    rng = np.random.default_rng(seed)
+    tensors: list = []
+
+    def tensor(name, shape, data=None, scale=None, qdim=0):
+        tensors.append(TfliteTensor(name, tuple(shape), np.dtype(np.float32 if data is None
+                                                                 else data.dtype), data,
+                                    None if scale is None else np.asarray(scale, np.float32),
+                                    None, qdim))
+        return len(tensors) - 1
+
+    def ints(name, values):
+        return tensor(name, [len(values)], np.asarray(values, np.int32))
+
+    def weight(name, cout, kw, cin):  # int8, one scale per output channel
+        scale = rng.uniform(0.5, 1.5, cout) / (127.0 * np.sqrt(kw * cin))
+        q = rng.integers(-127, 128, (cout, 1, kw, cin)).astype(np.int8)
+        return tensor(name, q.shape, q, scale)
+
+    def bias(name, n):
+        return tensor(name, [n], rng.integers(-2000, 2000, n).astype(np.int64), [1e-5])
+
+    tl = PACK_TILE
+    x = tensor("latents", [1, tl, PACK_LATENT_DIM])
+    ops = []
+
+    def op(name, ins, shape, **options):
+        out = tensor(f"{name}_{len(ops)}", shape)
+        ops.append(TfliteOp(name, ins, [out], options))
+        return out
+
+    h = op("RESHAPE", [x, ints("rows", [1, 1, tl, PACK_LATENT_DIM])], [1, 1, tl, PACK_LATENT_DIM])
+    h = op("CONV_2D", [h, weight("c1_w", 128, 3, PACK_LATENT_DIM), bias("c1_b", 128)],
+           [1, 1, tl, 128], padding=0, stride_w=1, stride_h=1)
+    h = op("GELU", [h], [1, 1, tl, 128], approximate=0)
+    # JAX's TRANSPOSE_CONV reads the weights' axis 0 as the input channels.
+    h = op("TRANSPOSE_CONV", [ints("up1_shape", [1, 1, 4 * tl, 96]),
+                              weight("up1_w", 128, 8, 96), h, bias("up1_b", 96)],
+           [1, 1, 4 * tl, 96], padding=0, stride_w=4, stride_h=1, fused_activation=1)
+    h = op("TRANSPOSE_CONV", [ints("up2_shape", [1, 1, 8 * tl, 64]),
+                              weight("up2_w", 96, 4, 64), h, bias("up2_b", 64)],
+           [1, 1, 8 * tl, 64], padding=0, stride_w=2, stride_h=1)
+    h = op("GELU", [h], [1, 1, 8 * tl, 64], approximate=1)
+    h = op("CONV_2D", [h, weight("c2_w", 60, 3, 64), bias("c2_b", 60)], [1, 1, 4 * tl, 60],
+           padding=0, stride_w=2, stride_h=1)
+    h = op("MUL", [h, tensor("gain", [60], rng.integers(8000, 16000, 60).astype(np.int16),
+                             [1.0 / 8192])], [1, 1, 4 * tl, 60])
+    h = op("ADD", [h, tensor("offset", [60], rng.integers(-4000, 4000, 60).astype(np.int16),
+                             [1.0 / 4096])], [1, 1, 4 * tl, 60])
+    h = op("RESHAPE", [h, ints("frames", [1, 4 * tl, 60])], [1, 4 * tl, 60])
+    h = op("TRANSPOSE", [h, ints("to_rows", [0, 2, 1])], [1, 60, 4 * tl])
+    h = op("TRANSPOSE", [h, ints("to_frames", [0, 2, 1])], [1, 4 * tl, 60])
+    return TfliteModel(tensors=tensors, ops=ops, inputs=[x], outputs=[h])
+
+
+def hifigan_graph(seed: int = 0, n_mels: int = 100, channels: int = 64):
+    """An in-memory ONNX graph of a HiFiGAN-class vocoder in the voice
+    cloner's vocoder.ort slot (a published export is not in the
+    repository): input ``mel`` [N, 100, T], output ``wav`` [N, 1, 256 T]:
+    a 7-tap pre-convolution, four LeakyReLU + ConvTranspose(8, stride 4)
+    upsamplings that halve the channels, each followed by a dilated
+    residual convolution, a 7-tap post-convolution and tanh; seeded
+    weights."""
+    from moonshine_tpu_torch.core.onnx_io import OnnxGraph, OnnxNode
+
+    rng = np.random.default_rng(seed)
+    inits, nodes = {}, []
+
+    def conv(x, name, cin, cout, k, dilation=1):
+        inits[name + "_w"] = (rng.standard_normal((cout, cin, k)) / np.sqrt(cin * k)).astype(
+            np.float32)
+        inits[name + "_b"] = (0.01 * rng.standard_normal(cout)).astype(np.float32)
+        p = dilation * (k - 1) // 2
+        nodes.append(OnnxNode("Conv", [x, name + "_w", name + "_b"], [name],
+                              attrs={"kernel_shape": [k], "pads": [p, p],
+                                     "dilations": [dilation]}))
+        return name
+
+    def leaky(x, name):
+        nodes.append(OnnxNode("LeakyRelu", [x], [name], attrs={"alpha": 0.1}))
+        return name
+
+    h = conv("mel", "pre", n_mels, channels, 7)
+    c = channels
+    for i in range(4):
+        u = leaky(h, f"up{i}_act")
+        inits[f"up{i}_w"] = (rng.standard_normal((c, c // 2, 8)) / np.sqrt(c * 2)).astype(
+            np.float32)
+        inits[f"up{i}_b"] = np.zeros(c // 2, np.float32)
+        nodes.append(OnnxNode("ConvTranspose", [u, f"up{i}_w", f"up{i}_b"], [f"up{i}"],
+                              attrs={"kernel_shape": [8], "strides": [4], "pads": [2, 2]}))
+        c //= 2
+        r = conv(leaky(f"up{i}", f"res{i}_act"), f"res{i}", c, c, 3, dilation=3)
+        nodes.append(OnnxNode("Add", [f"up{i}", r], [f"block{i}"]))
+        h = f"block{i}"
+    post = conv(leaky(h, "post_act"), "post", c, 1, 7)
+    nodes.append(OnnxNode("Tanh", [post], ["wav"]))
+    return OnnxGraph(nodes=nodes, initializers=inits, inputs=[("mel", ["batch", n_mels, "frames"])],
+                     outputs=[("wav", ["batch", 1, "samples"])])
+
+
 def phase_spelling(tokenizer_path: str, card: str, seed: int = 0) -> dict:
     """The spelling CNN (seeded weights) on SPELLING_CLIPS 1 s clips and
     SpellingOnnx over the contract graph, card against CPU (logits within
@@ -2499,6 +2629,298 @@ def phase_voice_loop(ea, tokenizer_path: str, card_emb, card: str, seed: int = 0
             "played": len(played)}
 
 
+# The code-only and published-pack voices, tok_pos and voice cloning, card
+# against CPU with the limits the port's CPU tests hold them to against JAX
+# (tests/test_torch_klatt.py, test_torch_tflite.py, test_torch_worldlite.py,
+# test_torch_voice_clone.py, test_torch_tok_pos.py).
+KLATT_REL_RMS = 2e-3  # RMS of the difference over the CPU waveform's RMS
+KLATT_IPAS = ("sˈɛvən", "mˈuːn ʃˈaɪn")
+PACK_TOL = 1e-5  # the decoder's rows, atol and rtol
+PACK_FRAMES = 600  # 3 s of 5 ms WORLD-lite frames
+PCM_STEPS = 2  # worldlite PCM, int16 steps
+CLONE_SECONDS = 8.0
+# The sampled mel (values up to about 6): cuBLAS's float32 products sum in
+# another order than the CPU's, and guidance 3.0 scales the difference of
+# the two branches at each of the 8 Euler steps.  The CPU tests hold the
+# port to 2e-5 of JAX on one CPU; the card's first run read 4.196e-5 from
+# the CPU's (PERF.md §6, PR 10), so the card is held to 2e-4.
+CLONE_MEL_TOL = 2e-4
+CLONE_WAV_TOL = 1e-4
+CLONE_ONNX_TOL = (2e-4, 1e-3)  # atol, rtol of the OnnxVocoder head
+PROMPT_MEL_TOL = (1e-4, 2e-4)  # compute_mel of the reference clip, atol, rtol
+CLONE_TEXT = "the quick brown fox jumps over the lazy dog"
+TOK_POS_TOL = 1e-5
+TOK_POS_LINES = ("数学是研究数量、结构以及空间等概念的一门学科。", "我们明天去北京看长城。",
+                 "今日は良い天気です。", "東京に行きます。", "アンパサンドは記号である。")
+
+
+def rel_rms(ours: np.ndarray, ref: np.ndarray) -> float:
+    d = np.sqrt(((ours - ref).astype(np.float64) ** 2).mean())
+    return float(d / max(np.sqrt((ref.astype(np.float64) ** 2).mean()), 1e-30))
+
+
+def phase_klatt(card: str) -> dict:
+    """``TextToSpeech().voice("klatt")`` on the card over the five
+    ``DEFAULT_SENTENCES`` and ``KlattTTS(deterministic_voice())`` on two
+    IPA strings, each against the same on the CPU: equal sample counts,
+    waveforms within KLATT_REL_RMS.  The real-time factor and one traced
+    utterance."""
+    from moonshine_tpu_torch.eval import tts_intelligibility as ti
+    from moonshine_tpu_torch.tts import klatt as kl
+    from moonshine_tpu_torch.tts.facade import TextToSpeech
+
+    tts = TextToSpeech().voice("klatt").load()
+    cpu = TextToSpeech(device="cpu").voice("klatt").load()
+    rows, walls, audio_s = [], [], 0.0
+    for text in ti.DEFAULT_SENTENCES:
+        t0 = time.perf_counter()
+        wav, sr = tts.synthesize(text)
+        walls.append(time.perf_counter() - t0)
+        ref, ref_sr = cpu.synthesize(text)
+        audio_s += len(wav) / sr
+        rows.append({"text": text, "samples": len(wav), "cpu_samples": len(ref), "sr": sr,
+                     "rel_rms": rel_rms(wav, ref) if len(wav) == len(ref) else float("inf"),
+                     "finite": bool(np.isfinite(wav).all())})
+    if tts._klatt.device.type != "cuda":
+        raise SystemExit("the Klatt voice is not on cuda")
+    det_card = kl.KlattTTS(kl.deterministic_voice())
+    det_cpu = kl.KlattTTS(kl.deterministic_voice(), device="cpu")
+    for ipa in KLATT_IPAS:
+        wav, ref = det_card.synthesize_ipa(ipa), det_cpu.synthesize_ipa(ipa)
+        rows.append({"text": ipa, "samples": len(wav), "cpu_samples": len(ref), "sr": 22050,
+                     "rel_rms": rel_rms(wav, ref) if len(wav) == len(ref) else float("inf"),
+                     "finite": bool(np.isfinite(wav).all())})
+    rtf = sum(walls) / audio_s
+    first = ti.DEFAULT_SENTENCES[0]
+    trace = traced(lambda: tts.synthesize(first))
+    log(f"  klatt voice on cuda, {len(walls)} sentences, {audio_s:.3f} s of 22.05 kHz audio in "
+        f"{sum(walls):.3f} s: real-time factor {rtf:.4f} on {card}")
+    for r in rows:
+        log(f"    {r['text'][:40]!r}: {r['samples']} samples (cpu {r['cpu_samples']}), "
+            f"relative RMS error {r['rel_rms']:.3e}")
+    log(f"  one synthesize (sentence 1) traced: wall {trace['wall_ms']:.3f} ms, kernels "
+        f"{trace['device_ms']:.3f} ms, idle share {trace['idle_share']:.3f}, "
+        f"{trace['launches']} launches")
+    worst = max(r["rel_rms"] for r in rows)
+    log(f"  card against cpu: sample counts equal "
+        f"{all(r['samples'] == r['cpu_samples'] for r in rows)}, worst relative RMS error "
+        f"{worst:.3e} (tolerance {KLATT_REL_RMS:g})")
+    if (any(r["samples"] != r["cpu_samples"] or r["sr"] != 22050 or not r["finite"]
+            for r in rows) or worst > KLATT_REL_RMS):
+        raise SystemExit("the Klatt voice on the card disagrees with the CPU's")
+    return {"rows": rows, "rtf": rtf, "audio_s": audio_s, "wall_s": sum(walls),
+            "traced": trace, "worst_rel_rms": worst}
+
+
+def phase_pack_decoder_and_worldlite(card: str, seed: int = 0) -> dict:
+    """The pack decoder's contract graph through ``TfliteExecutor`` on the
+    card, every tile of a 3 s utterance in one batch, against the CPU's;
+    then ``worldlite.render`` of those 600 frames with one noise draw
+    injected into both, card against CPU."""
+    from moonshine_tpu_torch.ops.tflite_graph import TfliteExecutor
+    from moonshine_tpu_torch.tts import neural_pack as npk
+    from moonshine_tpu_torch.tts import worldlite as wl
+
+    model = pack_decoder_graph(seed)
+    ex, ex_cpu = TfliteExecutor(model), TfliteExecutor(model, "cpu")
+    if ex.device.type != "cuda" or not all(t.is_cuda for t in ex.consts.values()):
+        raise SystemExit("the TFLite executor's constants are not on cuda")
+    rng = np.random.default_rng(seed)
+    n_tiles = -(-PACK_FRAMES // (4 * PACK_TILE))
+    tiles = (rng.standard_normal((n_tiles, PACK_TILE, PACK_LATENT_DIM)) * 0.5).astype(np.float32)
+    rows = npk.decode_tiles(ex, tiles)
+    ref = npk.decode_tiles(ex_cpu, tiles)
+    dec_err = float(np.abs(rows - ref).max())
+    dec_ok = bool(np.isfinite(rows).all()) and np.allclose(rows, ref, atol=PACK_TOL, rtol=PACK_TOL)
+    x = torch.from_numpy(tiles).cuda()
+    dec_ms = device_alone_ms(lambda: ex.run(x))
+
+    track = rows.reshape(-1, 60)[:PACK_FRAMES]
+    n = np.arange(PACK_FRAMES)
+    f0 = np.where(n % 120 < 90, 120 + 30 * np.sin(n / 25), 0).astype(np.float32)
+    benv = np.power(10.0, np.clip(track[:, :48], -3, 1) - 2).astype(np.float32)
+    bap = np.clip(track[:, 48:] * 0.5 + 0.5, 0.0, 1.0)
+    plan = wl.pulse_plan(f0)
+    pulses = len(plan["pulse_index"])
+    noise = torch.randn((pulses, wl.MAX_NOISE), generator=torch.Generator().manual_seed(seed))
+    pcm = wl.render(benv, bap, f0, 0.8, noise=noise)
+    pcm_cpu = wl.render(benv, bap, f0, 0.8, noise=noise, device="cpu")
+    steps = int(np.abs(pcm.astype(np.int32) - pcm_cpu.astype(np.int32)).max())
+    render = lambda: wl.render(benv, bap, f0, 0.8, noise=noise)
+    render()
+    torch.cuda.synchronize()
+    render_walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        render()  # the PCM comes back to the host: the wall is complete
+        render_walls.append((time.perf_counter() - t0) * 1e3)
+    trace = traced(render)
+    log(f"  decoder: {n_tiles} tiles of {PACK_TILE} latents in one batch -> {rows.shape}, "
+        f"{dec_ms['ms']:.4f} ms as the device sees it, {dec_ms['device_ms']:.4f} ms device "
+        f"alone; card against cpu max_abs_err {dec_err:.3e} (tolerance {PACK_TOL:g}) on {card}")
+    log(f"  worldlite.render: {PACK_FRAMES} frames, {pulses} pulses, "
+        f"{wl.overlap_sets(plan['pulse_index'])} overlap sets, {len(pcm)} samples in "
+        f"{statistics.median(render_walls):.3f} ms wall (median of 5); traced: kernels "
+        f"{trace['device_ms']:.3f} ms, idle share {trace['idle_share']:.3f}, "
+        f"{trace['launches']} launches; card against cpu {steps} int16 steps (tolerance "
+        f"{PCM_STEPS}), peak {int(np.abs(pcm).max())}")
+    log("  NeuralPackTTS end to end waits for the voice pack, which is not in the repository "
+        "(not a phase of this run)")
+    if not dec_ok or steps > PCM_STEPS or len(pcm) != PACK_FRAMES * wl.FRAME_SAMPLES:
+        raise SystemExit("the pack decoder or worldlite on the card disagrees with the CPU's")
+    return {"decoder_max_abs_err": dec_err, "decoder": dec_ms, "tiles": n_tiles,
+            "pulses": pulses, "pcm_steps": steps, "render_ms": statistics.median(render_walls),
+            "render_traced": trace}
+
+
+def clone_speech(seed: int = 0) -> np.ndarray:
+    """CLONE_SECONDS of the port's TextToSpeech on the card (random weights
+    from ``seed``), the DEFAULT_SENTENCES in turn, resampled to 16 kHz."""
+    from moonshine_tpu_torch.audio.resample import resample_audio
+    from moonshine_tpu_torch.eval import tts_intelligibility as ti
+    from moonshine_tpu_torch.tts.facade import TextToSpeech
+
+    tts = TextToSpeech(seed=seed).load()
+    pieces, total, i = [], 0, 0
+    while total < CLONE_SECONDS * SAMPLE_RATE:
+        wav, sr = tts.synthesize(ti.DEFAULT_SENTENCES[i % len(ti.DEFAULT_SENTENCES)])
+        pieces.append(resample_audio(wav, sr, SAMPLE_RATE))
+        total += len(pieces[-1])
+        i += 1
+    return np.concatenate(pieces)[: int(CLONE_SECONDS * SAMPLE_RATE)].astype(np.float32)
+
+
+def phase_voice_clone(ea, tokenizer_path: str, card: str, seed: int = 0) -> dict:
+    """Capture: ``VoiceClone`` on CLONE_SECONDS of the port's TTS speech fed
+    in 0.5 s chunks, with a constant speech probability (as the JAX test
+    does: a random-weight VAD hears no speech in random speech).  Clip
+    words: ``Transcriber(model="base")`` with word timestamps on the card
+    (the VAD off; K1 in every encode) gives ``finalize(words=...)``.
+    Synthesis: ``VoiceCloner()`` at ``CloneConfig()`` says CLONE_TEXT with
+    the iSTFT head and with an ``OnnxVocoder`` over ``hifigan_graph()``;
+    its mel and waveforms against a CPU cloner with the same weights,
+    prompt and latent."""
+    from moonshine_tpu_torch import Transcriber
+    from moonshine_tpu_torch.models import voice_clone as vc
+    from moonshine_tpu_torch.models.tts_onnx import OnnxVocoder
+    from moonshine_tpu_torch.tts.g2p import GraphemeToPhonemizer
+    from moonshine_tpu_torch.tts.voice_clone_api import VoiceClone
+
+    speech = clone_speech(seed)
+    cloner = vc.VoiceCloner()
+    if not all(p.is_cuda for p in cloner.params.parameters()):
+        raise SystemExit("the voice cloner is not on cuda")
+    session = VoiceClone(lambda hops: np.ones(hops.shape[0], np.float32), cloner)
+    chunk = SAMPLE_RATE // 2
+    progress = [session.add_audio(speech[i:i + chunk]) for i in range(0, len(speech), chunk)]
+    if not progress[-1].ready:
+        raise SystemExit("VoiceClone did not capture a complete clip")
+
+    tr = Transcriber(model="base", tokenizer_path=tokenizer_path).with_options(
+        vad_threshold=0, word_timestamps=True).load()
+    if tr.device.type != "cuda":
+        raise SystemExit("the clip's Transcriber is not on cuda")
+    launches0 = ea.encoder_attention_packed.launches
+    t0 = time.perf_counter()
+    words = [w for line in tr.transcribe(speech).lines for w in line.words]
+    asr_s = time.perf_counter() - t0
+    k1 = ea.encoder_attention_packed.launches - launches0
+    if not words:
+        raise SystemExit("the clip's transcription gave no word times")
+    clip = session.finalize(words=words)
+    log(f"  capture: {len(progress)} chunks of 0.5 s, ready after "
+        f"{next(i for i, p in enumerate(progress) if p.ready) + 1}; {len(words)} words in "
+        f"{asr_s:.3f} s, K1 {k1} launches; clip {clip.audio.size / SAMPLE_RATE:.3f} s from "
+        f"{clip.start_time_seconds:.2f} s, transcript {session.transcript[:50]!r}")
+
+    # The CPU cloner takes the card's prompt, so that the two sample the
+    # same ODE; compute_mel of the clip is compared on its own.
+    cpu = vc.VoiceCloner(copy.deepcopy(cloner.params).to("cpu"), device="cpu")
+    cpu.set_reference(clip.audio, session.transcript, SAMPLE_RATE)
+    prompt_err = float(np.abs(cloner._prompt_mel - cpu._prompt_mel).max())
+    prompt_ok = np.allclose(cloner._prompt_mel, cpu._prompt_mel, atol=PROMPT_MEL_TOL[0],
+                            rtol=PROMPT_MEL_TOL[1])
+    cpu._prompt_mel, cpu._prompt_ipa = cloner._prompt_mel, cloner._prompt_ipa
+    ipa = GraphemeToPhonemizer("en").text_to_ipa(CLONE_TEXT)
+    x0 = vc.initial_latent(cloner.seed, vc.MAX_FRAMES)
+    mel, prompt_frames, total = cloner.mel_from_ipa(ipa, x0=x0)
+    mel_cpu, _, _ = cpu.mel_from_ipa(ipa, x0=x0)
+    mel_err = float((mel.cpu() - mel_cpu).abs().max())
+    wav = cloner.synthesize_from_ipa(ipa, x0=x0)
+    wav_cpu = cpu.synthesize_from_ipa(ipa, x0=x0)
+    wav_err = float(np.abs(wav - wav_cpu).max()) if wav.shape == wav_cpu.shape else float("inf")
+    graph = hifigan_graph(seed)
+    cloner.vocoder, cpu.vocoder = OnnxVocoder(graph), OnnxVocoder(graph, "cpu")
+    onnx_wav = cloner.synthesize_from_ipa(ipa, x0=x0)
+    onnx_cpu = cpu.synthesize_from_ipa(ipa, x0=x0)
+    onnx_ok = onnx_wav.shape == onnx_cpu.shape and np.allclose(
+        onnx_wav, onnx_cpu, atol=CLONE_ONNX_TOL[0], rtol=CLONE_ONNX_TOL[1])
+    onnx_err = (float(np.abs(onnx_wav - onnx_cpu).max()) if onnx_wav.shape == onnx_cpu.shape
+                else float("inf"))
+    cloner.vocoder = None
+
+    say = lambda: session.say(CLONE_TEXT)
+    say()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = say()  # numpy back on the host: the wall is complete
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    rtf = wall / (len(out) / vc.SAMPLE_RATE)
+    trace = traced(say)
+    sample = lambda: cloner.mel_from_ipa(ipa, x0=x0)
+    sample_ms = device_alone_ms(sample, runs=3)
+    log(f"  synthesis, CloneConfig() on cuda: {len(out)} samples ({len(out) / vc.SAMPLE_RATE:.3f}"
+        f" s at 24 kHz, {total - prompt_frames} frames after a {prompt_frames}-frame prompt) in "
+        f"{wall * 1e3:.3f} ms wall (median of 3): real-time factor {rtf:.4f} on {card}")
+    log(f"  one say traced: wall {trace['wall_ms']:.3f} ms, kernels {trace['device_ms']:.3f} ms, "
+        f"idle share {trace['idle_share']:.3f}, {trace['launches']} launches; the 8-step sample "
+        f"alone {sample_ms['ms']:.3f} ms as the device sees it, {sample_ms['device_ms']:.3f} ms "
+        "device alone")
+    log(f"  card against cpu: prompt mel {prompt_err:.3e} (tolerance {PROMPT_MEL_TOL}), sampled "
+        f"mel {mel_err:.3e} (tolerance {CLONE_MEL_TOL:g}), waveform {wav_err:.3e} (tolerance "
+        f"{CLONE_WAV_TOL:g}), OnnxVocoder waveform {onnx_err:.3e} (tolerance {CLONE_ONNX_TOL})")
+    if not k1:
+        raise SystemExit("K1 did not launch in the clone session's transcription")
+    if (not prompt_ok or mel_err > CLONE_MEL_TOL or wav_err > CLONE_WAV_TOL or not onnx_ok
+            or not np.isfinite(out).all() or len(out) == 0):
+        raise SystemExit("the voice cloner on the card disagrees with the CPU's")
+    return {"k1_launches": k1, "words": len(words), "asr_s": asr_s,
+            "clip_s": clip.audio.size / SAMPLE_RATE, "prompt_mel_max_abs_err": prompt_err,
+            "mel_max_abs_err": mel_err, "wav_max_abs_err": wav_err,
+            "onnx_wav_max_abs_err": onnx_err, "synth_wall_ms": wall * 1e3, "rtf": rtf,
+            "traced": trace, "sample": sample_ms}
+
+
+def phase_tok_pos(card: str, seed: int = 0) -> dict:
+    """``TokPosTagger`` at ``TokPosConfig()`` with weights from ``seed`` on
+    the card, against the same weights on the CPU: equal annotations on zh
+    and ja lines, logits within TOK_POS_TOL."""
+    from moonshine_tpu_torch.tts import tok_pos as tp
+
+    cfg = tp.TokPosConfig()
+    vocab = sorted({c for line in TOK_POS_LINES for c in line})
+    tags = ["NOUN", "VERB", "ADJ", "ADP", "PUNCT", "PRON", "ADV", "AUX", "PART", "PROPN", "NUM"]
+    model = tp.init_params(cfg, torch.Generator().manual_seed(seed), len(vocab) + 2, len(tags))
+    tagger = tp.TokPosTagger(cfg, model, vocab, tags)
+    cpu = tp.TokPosTagger(cfg, copy.deepcopy(model).to("cpu"), vocab, tags, device="cpu")
+    same, err = True, 0.0
+    for line in TOK_POS_LINES:
+        for a, b in zip(tagger.logits(line), cpu.logits(line)):
+            err = max(err, float((a.cpu() - b).abs().max()))
+        same &= tagger.annotate(line) == cpu.annotate(line)
+    ms = device_alone_ms(lambda: tagger.logits(TOK_POS_LINES[0]))
+    log(f"  TokPosConfig() on cuda, {len(TOK_POS_LINES)} zh and ja lines: annotations equal "
+        f"{same}, logits max_abs_err {err:.3e} (tolerance {TOK_POS_TOL:g}); one line "
+        f"{ms['ms']:.4f} ms as the device sees it on {card}; first line "
+        f"{tagger.segment(TOK_POS_LINES[0])[:4]}")
+    if not same or err > TOK_POS_TOL:
+        raise SystemExit("the tok_pos tagger on the card disagrees with the CPU's")
+    return {"annotations_equal": same, "logits_max_abs_err": err, "line": ms}
+
+
 def gather_entry(name: str, replaces: str, launches: int, max_err: float, t: dict,
                  extra: dict | None = None) -> dict:
     return {"name": name, "route": "cuda", "source": "moonshine_tpu_torch/csrc/beam_gather.cu",
@@ -2658,6 +3080,31 @@ def main() -> int:
         voice["phases_s"] = time.perf_counter() - t_voice
         log(f"  kernel launches: {voice_launches}; the three voice-agent phases took "
             f"{voice['phases_s']:.1f} s")
+        # The code-only and pack voices, tok_pos and the cloner are XLA
+        # code in the JAX package (no Pallas); the clone session's
+        # transcription runs K1 in every encode.
+        t_item12 = time.perf_counter()
+        log("[klatt] TextToSpeech().voice('klatt') and KlattTTS on cuda, card against cpu")
+        reset_launches(ea, bg)
+        klatt = phase_klatt(card)
+        item12_launches = {"klatt": kernel_launches(ea, bg)}
+        log("[neural pack decoder and worldlite] TfliteExecutor and worldlite.render on cuda")
+        reset_launches(ea, bg)
+        pack = phase_pack_decoder_and_worldlite(card)
+        item12_launches["neural pack decoder and worldlite"] = kernel_launches(ea, bg)
+        log("[voice clone] VoiceClone capture, Transcriber(model='base') word times, "
+            "VoiceCloner on cuda")
+        reset_launches(ea, bg)
+        clone = phase_voice_clone(ea, tok_path, card)
+        item12_launches["voice clone"] = kernel_launches(ea, bg)
+        log("[tok_pos] TokPosTagger on cuda, card against cpu")
+        reset_launches(ea, bg)
+        tok_pos = phase_tok_pos(card)
+        item12_launches["tok_pos"] = kernel_launches(ea, bg)
+        item12_s = time.perf_counter() - t_item12
+        log(f"  kernel launches: {item12_launches}; the four phases took {item12_s:.1f} s")
+        if not item12_launches["voice clone"]["encoder_attention_packed"]:
+            raise SystemExit("K1 did not launch on the voice clone path")
 
     k3, k4 = gather_times["K3 int8"], gather_times["K4"]
     k3_bf16 = gather_times["K3 bf16"]
@@ -2685,7 +3132,7 @@ def main() -> int:
     def on_counted_paths(kernel: str) -> dict:
         return {path: counts[kernel]
                 for path, counts in {**serving_launches, **speaker_launches,
-                                     **voice_launches}.items()}
+                                     **voice_launches, **item12_launches}.items()}
 
     k1_by_path.update(on_counted_paths("encoder_attention_packed"))
     kernels = [{
@@ -2740,7 +3187,9 @@ def main() -> int:
               "streaming_bench": streaming_bench, "serving_launches": serving_launches,
               "speakers": speakers, "spelling": spelling, "speaker_launches": speaker_launches,
               "embeddings": embeddings, "agent": agent, "voice_loop": voice,
-              "voice_launches": voice_launches,
+              "voice_launches": voice_launches, "klatt": klatt,
+              "pack_decoder_and_worldlite": pack, "voice_clone": clone, "tok_pos": tok_pos,
+              "item12_launches": item12_launches, "item12_s": item12_s,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -137,22 +137,23 @@ def init_params(cfg: TTSConfig, generator: torch.Generator, device=None) -> TTS:
 
 
 def _transformer(layers, h: torch.Tensor, mask: torch.Tensor, heads: int) -> torch.Tensor:
-    """Pre-norm rotary transformer over one sequence ``h [T, D]``; keys
-    outside ``mask`` get -1e9."""
-    t, dim = h.shape
+    """Pre-norm rotary transformer over ``h [..., T, D]`` (one sequence, or
+    a batch of them as in the voice cloner); keys outside ``mask [..., T]``
+    get -1e9."""
+    *lead, t, dim = h.shape
     hd = dim // heads
     cos, sin = rotary_tables(torch.arange(t, device=h.device), hd - (hd % 2), 10000.0)
     scale = float(np.sqrt(np.float32(hd)))
     for lp in layers:
         x = layer_norm(lp.ln1, h)
-        q = apply_rotary(dense(lp.attn.q, x).reshape(t, heads, -1), cos, sin)
-        k = apply_rotary(dense(lp.attn.k, x).reshape(t, heads, -1), cos, sin)
-        v = dense(lp.attn.v, x).reshape(t, heads, -1)
-        logits = torch.einsum("shd,thd->hst", q.float(), k.float()) / scale
-        logits = logits.masked_fill(~mask[None, None, :], -1e9)
+        q = apply_rotary(dense(lp.attn.q, x).reshape(*lead, t, heads, -1), cos, sin)
+        k = apply_rotary(dense(lp.attn.k, x).reshape(*lead, t, heads, -1), cos, sin)
+        v = dense(lp.attn.v, x).reshape(*lead, t, heads, -1)
+        logits = torch.einsum("...shd,...thd->...hst", q.float(), k.float()) / scale
+        logits = logits.masked_fill(~mask[..., None, None, :], -1e9)
         w = torch.softmax(logits, dim=-1).to(x.dtype)
-        o = torch.einsum("hst,thd->shd", w, v)
-        h = h + dense(lp.attn.o, o.reshape(t, -1))
+        o = torch.einsum("...hst,...thd->...shd", w, v)
+        h = h + dense(lp.attn.o, o.reshape(*lead, t, -1))
         x2 = layer_norm(lp.ln2, h)
         h = h + dense(lp.mlp.fc2, gelu(dense(lp.mlp.fc1, x2)))
     return h

@@ -9,10 +9,12 @@ while the last one plays).  Voice packs use the JAX package's tensor names
 (``voice/<name>``, ``params/<path of the JAX tree>``) and layouts, so a pack
 written by either package loads in the other.
 
-The ``klatt*`` and ``neural-pack*`` voices (the JAX package's
-``tts/klatt.py`` and ``tts/neural_pack.py``) are not ported yet (ROADMAP
-item 12); they raise ``NotImplementedError`` and never fall back to the
-neural voice.
+Voices named ``klatt*`` route to the code-only formant voice
+(``tts/klatt.py``, 22.05 kHz) and ``neural-pack*`` to the reference's
+published voice pack (``tts/neural_pack.py``, 16 kHz), both on the
+facade's device, as the JAX facade routes them.  Without the pack, a
+``neural-pack*`` voice raises the pack's ``FileNotFoundError``; no voice
+falls back to another.
 """
 
 from __future__ import annotations
@@ -160,6 +162,8 @@ class TextToSpeech:
         self.params = params.to(self.device) if params is not None else None
         self.voices: dict[str, np.ndarray] = {}
         self._g2p: GraphemeToPhonemizer | None = None
+        self._klatt = None  # tts/klatt.KlattTTS, made on first use
+        self._neural = None  # tts/neural_pack.NeuralPackTTS, made on first use
         self._playback_fn: Optional[Callable[[np.ndarray, int], None]] = None
         # Two-stage pipeline: the say queue feeds a synthesis thread; the
         # bounded play queue (maxsize=1) feeds a playback thread, so
@@ -226,23 +230,65 @@ class TextToSpeech:
 
     # -- synthesis ----------------------------------------------------------
 
-    def _refuse_unported_voice(self) -> None:
-        for prefix, module in (("neural-pack", "tts/neural_pack.py"), ("klatt", "tts/klatt.py")):
-            if self._voice_name.startswith(prefix):
-                raise NotImplementedError(
-                    f"voice {self._voice_name!r} needs {module}, which the PyTorch port does "
-                    "not have yet (ROADMAP item 12)")
-
     def synthesize(
         self, text: str, options: TTSOptions | None = None
     ) -> tuple[np.ndarray, int]:
-        """Text -> (waveform float32, sample rate): G2P, then the acoustic
-        model (24 kHz)."""
+        """Text -> (waveform float32, sample rate).
+
+        Engine auto-pick per voice prefix (reference: moonshine-tts.cpp
+        engine selection by voice name): ``neural-pack*`` voices route to
+        the reference's published in-tree voice (16 kHz), ``klatt*`` to the
+        formant voice (22.05 kHz); everything else uses the
+        style-conditioned acoustic model (24 kHz).
+        """
         if not self._loaded:
             raise RuntimeError("Call load() before synthesize()")
-        self._refuse_unported_voice()
+        if self._voice_name.startswith("neural-pack"):
+            return self._neural_synthesize(text, options, ipa=None)
+        if self._voice_name.startswith("klatt"):
+            return self._klatt_synthesize(text, options, ipa=None)
         ipa = self._g2p.text_to_ipa(text)
         return self.synthesize_from_phonemes(ipa, options)
+
+    def _klatt_synthesize(
+        self, text: str | None, options: TTSOptions | None, ipa: str | None
+    ) -> tuple[np.ndarray, int]:
+        """Code-only formant voice (tts/klatt.py — the micro stack's
+        Klatt engine; 22.05 kHz, zero trained weights)."""
+        from .klatt import KlattTTS
+
+        if self._klatt is None:
+            self._klatt = KlattTTS(device=self.device)
+        opts = options or self._default_options
+        speed = float(opts.speed) if opts.speed else 1.0
+        wav = (
+            self._klatt.synthesize_ipa(ipa, speed=speed) if ipa is not None
+            else self._klatt.synthesize(text or "", speed=speed)
+        )
+        if opts.volume != 1.0:
+            wav = wav * np.float32(opts.volume)
+        return wav.astype(np.float32), 22050
+
+    def _neural_synthesize(
+        self, text: str | None, options: TTSOptions | None, ipa: str | None
+    ) -> tuple[np.ndarray, int]:
+        from .neural_pack import NeuralPackTTS
+
+        if self._neural is None:
+            self._neural = NeuralPackTTS(device=self.device)
+        opts = options or self._default_options
+        pcm = (
+            self._neural.synthesize_ipa(ipa) if ipa is not None
+            else self._neural.synthesize(text or "")
+        )
+        wav = pcm.astype(np.float32) / 32768.0
+        if opts.normalize and wav.size:
+            peak = np.max(np.abs(wav))
+            if peak > 1e-6:
+                wav = wav * (0.95 / max(peak, 0.95))
+        if opts.volume != 1.0:
+            wav = wav * opts.volume
+        return wav, 16000
 
     def phoneme_batch(self, ipa: str) -> tuple[torch.Tensor, int]:
         """The padded ``[MAX_PHONEMES]`` ids (on the device) and their count
@@ -255,10 +301,14 @@ class TextToSpeech:
     def synthesize_from_phonemes(
         self, ipa: str, options: TTSOptions | None = None
     ) -> tuple[np.ndarray, int]:
-        """IPA string -> waveform."""
+        """IPA string -> waveform (reference: moonshine-tts.h
+        synthesize_from_phonemes)."""
         if not self._loaded:
             raise RuntimeError("Call load() before synthesize()")
-        self._refuse_unported_voice()
+        if self._voice_name.startswith("neural-pack"):
+            return self._neural_synthesize(None, options, ipa=ipa)
+        if self._voice_name.startswith("klatt"):
+            return self._klatt_synthesize(None, options, ipa=ipa)
         opts = options or self._default_options
         phonemes, n_ids = self.phoneme_batch(ipa)
         style = torch.from_numpy(np.array(self.voices[self._voice_name], np.float32))

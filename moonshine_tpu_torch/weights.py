@@ -46,7 +46,9 @@ from .models import diarization as dm
 from .models import gemma as gm
 from .models import spelling as sp
 from .models import tts as tts_mod
+from .models import voice_clone as vc_mod
 from .tts import g2p_transformer as g2pt
+from .tts import tok_pos as tp_mod
 from .models.layers import Conv1d, Conv2d, Dense, Norm
 
 
@@ -396,17 +398,68 @@ def g2p_params_from_jax_numpy(tree: dict,
     return model.to(resolve_device(device))
 
 
+def _g2p_block_np(b: g2pt.G2PBlock) -> dict:
+    out = {k: _norm_np(getattr(b, k)) for k in _G2P_NORMS if getattr(b, k) is not None}
+    out.update({k: _dense_np(getattr(b, k)) for k in _G2P_DENSE if getattr(b, k) is not None})
+    return out
+
+
 def g2p_params_to_numpy(model: g2pt.G2PModel) -> dict:
     """The port's ``G2PModel`` -> a JAX-layout tree."""
-    def block(b: g2pt.G2PBlock) -> dict:
-        out = {k: _norm_np(getattr(b, k)) for k in _G2P_NORMS if getattr(b, k) is not None}
-        out.update({k: _dense_np(getattr(b, k)) for k in _G2P_DENSE if getattr(b, k) is not None})
-        return out
-
     return {**{k: _numpy(getattr(model, k)) for k in ("in_embed", "in_pos", "out_embed",
                                                       "out_pos")},
-            "enc": [block(b) for b in model.enc], "dec": [block(b) for b in model.dec],
+            "enc": [_g2p_block_np(b) for b in model.enc],
+            "dec": [_g2p_block_np(b) for b in model.dec],
             "ln_f": _norm_np(model.ln_f), "head": _dense_np(model.head)}
+
+
+def tok_pos_params_from_jax_numpy(tree: dict,
+                                  device: str | torch.device | None = None) -> tp_mod.TokPosModel:
+    """A JAX ``tts.tok_pos`` tree (numpy leaves; ``enc`` a list of blocks)
+    -> the port's ``TokPosModel`` on ``device``."""
+    model = tp_mod.TokPosModel(_tensor(tree["embed"]), _tensor(tree["pos"]),
+                               [_g2p_block(b) for b in tree["enc"]], _norm(tree["ln_f"]),
+                               _dense(tree["head_bio"]), _dense(tree["head_pos"]))
+    return model.to(resolve_device(device))
+
+
+def tok_pos_params_to_numpy(model: tp_mod.TokPosModel) -> dict:
+    """The port's ``TokPosModel`` -> a JAX-layout tree."""
+    return {"embed": _numpy(model.embed), "pos": _numpy(model.pos),
+            "enc": [_g2p_block_np(b) for b in model.enc],
+            "ln_f": _norm_np(model.ln_f), "head_bio": _dense_np(model.head_bio),
+            "head_pos": _dense_np(model.head_pos)}
+
+
+def voice_clone_params_from_jax_numpy(
+        tree: dict, device: str | torch.device | None = None) -> vc_mod.VoiceCloneModel:
+    """A JAX ``models.voice_clone`` tree (numpy leaves, layers stacked) ->
+    the port's ``VoiceCloneModel`` on ``device``."""
+    def layers(part: dict) -> list:
+        depth = np.asarray(part["layers"]["ln1"]["scale"]).shape[0]
+        return [_encoder_layer(lp) for lp in _unstack(part["layers"], depth)]
+
+    voc = tree["vocoder"]
+    model = vc_mod.VoiceCloneModel(
+        _tensor(tree["embed"]), layers(tree["text"]), _norm(tree["text"]["norm"]),
+        _dense(tree["in_proj"]), _dense(tree["time_mlp"]["fc1"]), _dense(tree["time_mlp"]["fc2"]),
+        layers(tree["fm"]), _norm(tree["fm"]["norm"]), _dense(tree["out_proj"]),
+        _dense(voc["fc1"]), _dense(voc["fc2"]), _dense(voc["mag"]), _dense(voc["phase"]))
+    return model.to(resolve_device(device))
+
+
+def voice_clone_params_to_numpy(model: vc_mod.VoiceCloneModel) -> dict:
+    """The port's ``VoiceCloneModel`` -> a JAX-layout tree (layers stacked)."""
+    def part(layers, norm) -> dict:
+        return {"layers": _stack([_encoder_layer_np(lp) for lp in layers]),
+                "norm": _norm_np(norm)}
+
+    return {"embed": _numpy(model.embed), "text": part(model.text_layers, model.text_norm),
+            "in_proj": _dense_np(model.in_proj),
+            "time_mlp": {"fc1": _dense_np(model.time_fc1), "fc2": _dense_np(model.time_fc2)},
+            "fm": part(model.fm_layers, model.fm_norm), "out_proj": _dense_np(model.out_proj),
+            "vocoder": {"fc1": _dense_np(model.voc_fc1), "fc2": _dense_np(model.voc_fc2),
+                        "mag": _dense_np(model.voc_mag), "phase": _dense_np(model.voc_phase)}}
 
 
 # =========================================================================

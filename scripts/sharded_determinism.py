@@ -2,6 +2,7 @@
 """Run-to-run determinism of the sharded inference path on one CUDA card.
 
     python3 scripts/sharded_determinism.py [--tree ROOT] [--k1-runs 400] [--encodes 40]
+                                           [--cudnn-deterministic]
 
 ``chip_smoke.py [sharded path]`` holds the sharded encode (``attn_impl=
 "pallas_shmap"`` on a world-1 NCCL group and its 1x1 mesh) bit for bit
@@ -17,6 +18,12 @@ an ``empty_cache``), as the phases before ``[sharded path]`` leave it.
 Every output is compared bit for bit with the first.  Then it runs
 ``chip_smoke.phase_sharded`` itself.  Prints the card and one line per
 check; exits 1 if anything differed.
+
+Two settings that nothing in the port fixes can be tried here:
+``--cudnn-deterministic`` sets ``torch.backends.cudnn.deterministic`` (the
+frontend's convolutions), and ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the
+environment fixes cuBLAS's workspace (products issued while NCCL's stream
+is live).  The script prints both.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ def main() -> int:
         os.path.abspath(__file__))), help="root of the checkout to test")
     parser.add_argument("--k1-runs", type=int, default=400)
     parser.add_argument("--encodes", type=int, default=40)
+    parser.add_argument("--cudnn-deterministic", action="store_true",
+                        help="set torch.backends.cudnn.deterministic")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -58,8 +67,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = args.cudnn_deterministic
     _build.build()
-    print(f"{cs.card_line()}; checkout {tree}", flush=True)
+    print(f"{cs.card_line()}; checkout {tree}; cudnn.deterministic="
+          f"{torch.backends.cudnn.deterministic}; CUBLAS_WORKSPACE_CONFIG="
+          f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}", flush=True)
     g = torch.Generator().manual_seed(5)
     held = []
 

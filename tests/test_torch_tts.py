@@ -14,7 +14,8 @@ intelligibility eval against the JAX package's, on the CPU.
 - The facade contracts of tests/test_tts.py on the port: the say queue's
   order, beeps, speed, voice packs (written by either package, loaded in
   the other), and the ``AlphanumericListener`` contract; the ``klatt`` and
-  ``neural-pack`` voices raise until they are ported.
+  ``neural-pack`` voices route as JAX's facade routes them
+  (tests/test_torch_klatt.py holds the Klatt waveforms).
 - ``eval/tts_intelligibility.evaluate`` with stubs gives JAX's CER.
 """
 
@@ -196,10 +197,22 @@ def test_facade_speed_option():
 
 @pytest.mark.parametrize("voice", ["klatt", "klatt_fast", "neural-pack", "neural-pack-en"])
 def test_unported_voices_raise(voice):
+    """The voices that raised until ROADMAP item 12 was ported now route as
+    JAX's facade routes them: each call gives JAX's sample rate and length,
+    or raises what JAX's raises (the missing voice pack's
+    FileNotFoundError), never NotImplementedError and never another voice."""
     tts = _small_tts().voice(voice).load()
-    for call in (lambda: tts.synthesize("hello"), lambda: tts.synthesize_from_phonemes("hɛloʊ")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            call()
+    jtts = jfacade.TextToSpeech().voice(voice).load()
+    for name, arg in (("synthesize", "hello"), ("synthesize_from_phonemes", "hɛloʊ")):
+        try:
+            ref, ref_sr = getattr(jtts, name)(arg)
+        except FileNotFoundError:
+            with pytest.raises(FileNotFoundError):
+                getattr(tts, name)(arg)
+            continue
+        wav, sr = getattr(tts, name)(arg)
+        assert sr == ref_sr == (22050 if voice.startswith("klatt") else 16000)
+        assert wav.shape == ref.shape and wav.dtype == np.float32
 
 
 def test_split_say_utterances_matches_jax():

@@ -65,7 +65,17 @@ clone]`` (a ``VoiceClone`` capture of the TTS's speech, its word times
 from ``Transcriber(model="base")``, K1 in every encode, then
 ``VoiceCloner()`` with the iSTFT head and an ``OnnxVocoder``, card against
 CPU on the same latent) and ``[tok_pos]`` (``TokPosTagger``, card against
-CPU). Every phase that
+CPU). Then the edges: ``[native host]`` (libmoonshine_host.so built with
+g++ from the port's sources, held against the Python resampler and
+segmenter), ``[mic]`` (``mic.MicTranscriber`` over a ``WavSource`` into
+``Transcriber(model="base")``, lines against a CPU mic's), ``[server]``
+(``TranscriptionServer`` at ``server.main``'s defaults driven without a
+socket: slots, update-loop ticks and every RPC, card against CPU),
+``[native client]`` (the client library and its selftest), ``[cli and
+download]`` (``cli transcribe`` through the catalog against ``--device
+cpu``, ``models``, ``g2p``, ``tts``; ``download`` from a loopback
+http.server, byte for byte) and ``[latency and fleurs]``; K1 runs in the
+mic, cli transcribe and latency paths. Every phase that
 fails ends the run with a non-zero exit. The last two lines of standard
 output are the kernels' JSON summary and the device JSON; a fuller record
 goes to chiprun_out/chip_smoke.json. Without CUDA, or without the rest of
@@ -75,6 +85,7 @@ the repository beside it, it fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import copy
 import json
 import os
@@ -2639,11 +2650,16 @@ PACK_TOL = 1e-5  # the decoder's rows, atol and rtol
 PACK_FRAMES = 600  # 3 s of 5 ms WORLD-lite frames
 PCM_STEPS = 2  # worldlite PCM, int16 steps
 CLONE_SECONDS = 8.0
-# The sampled mel (values up to about 6): cuBLAS's float32 products sum in
-# another order than the CPU's, and guidance 3.0 scales the difference of
-# the two branches at each of the 8 Euler steps.  The CPU tests hold the
-# port to 2e-5 of JAX on one CPU; the card's first run read 4.196e-5 from
-# the CPU's (PERF.md §6, PR 10), so the card is held to 2e-4.
+# The sampled mel (values up to about 6), card against CPU.  The CPU tests
+# hold the port to 2e-5 of JAX on one CPU.  On the card (an H100, PERF.md
+# §6) the gap is one velocity evaluation's float32 rounding (cuBLAS's
+# products and the 1,024-key attention sums in another order than the
+# CPU's), read through the mel's 1 / feat_scale = 10 and guidance's
+# scaling of the branches' difference; it does not grow over the Euler
+# steps: 4.196e-5 at guidance 3.0 and 8 steps, 1.907e-5 at guidance 1.0,
+# 6.485e-5 after one step at guidance 3.0 and 2.146e-5 after one at 1.0.
+# One step at guidance 1.0 already exceeds 2e-5, so the card is held to
+# 2e-4, about 3x the one-step reading at guidance 3.0.
 CLONE_MEL_TOL = 2e-4
 CLONE_WAV_TOL = 1e-4
 CLONE_ONNX_TOL = (2e-4, 1e-3)  # atol, rtol of the OnnxVocoder head
@@ -2846,6 +2862,21 @@ def phase_voice_clone(ea, tokenizer_path: str, card: str, seed: int = 0) -> dict
     mel, prompt_frames, total = cloner.mel_from_ipa(ipa, x0=x0)
     mel_cpu, _, _ = cpu.mel_from_ipa(ipa, x0=x0)
     mel_err = float((mel.cpu() - mel_cpu).abs().max())
+    # CLONE_MEL_TOL's stated cause, tested: the card-cpu gap of the sampled
+    # mel with guidance 1.0 (no scaling of the branches' difference), after
+    # one Euler step, and both.
+    mel_gaps = {}
+    for label, guidance, steps in (("guidance 1.0", 1.0, cloner.num_steps),
+                                   ("1 Euler step", cloner.guidance, 1),
+                                   ("guidance 1.0, 1 step", 1.0, 1)):
+        saved = [(c, c.guidance, c.num_steps) for c in (cloner, cpu)]
+        for c in (cloner, cpu):
+            c.guidance, c.num_steps = guidance, steps
+        got, _, _ = cloner.mel_from_ipa(ipa, x0=x0)
+        ref, _, _ = cpu.mel_from_ipa(ipa, x0=x0)
+        mel_gaps[label] = float((got.cpu() - ref).abs().max())
+        for c, g, n in saved:
+            c.guidance, c.num_steps = g, n
     wav = cloner.synthesize_from_ipa(ipa, x0=x0)
     wav_cpu = cpu.synthesize_from_ipa(ipa, x0=x0)
     wav_err = float(np.abs(wav - wav_cpu).max()) if wav.shape == wav_cpu.shape else float("inf")
@@ -2882,6 +2913,9 @@ def phase_voice_clone(ea, tokenizer_path: str, card: str, seed: int = 0) -> dict
     log(f"  card against cpu: prompt mel {prompt_err:.3e} (tolerance {PROMPT_MEL_TOL}), sampled "
         f"mel {mel_err:.3e} (tolerance {CLONE_MEL_TOL:g}), waveform {wav_err:.3e} (tolerance "
         f"{CLONE_WAV_TOL:g}), OnnxVocoder waveform {onnx_err:.3e} (tolerance {CLONE_ONNX_TOL})")
+    log(f"  sampled mel, card against cpu, at guidance {cloner.guidance:g} and "
+        f"{cloner.num_steps} steps {mel_err:.3e}; " + ", ".join(
+            f"{k} {v:.3e}" for k, v in mel_gaps.items()))
     if not k1:
         raise SystemExit("K1 did not launch in the clone session's transcription")
     if (not prompt_ok or mel_err > CLONE_MEL_TOL or wav_err > CLONE_WAV_TOL or not onnx_ok
@@ -2889,7 +2923,7 @@ def phase_voice_clone(ea, tokenizer_path: str, card: str, seed: int = 0) -> dict
         raise SystemExit("the voice cloner on the card disagrees with the CPU's")
     return {"k1_launches": k1, "words": len(words), "asr_s": asr_s,
             "clip_s": clip.audio.size / SAMPLE_RATE, "prompt_mel_max_abs_err": prompt_err,
-            "mel_max_abs_err": mel_err, "wav_max_abs_err": wav_err,
+            "mel_max_abs_err": mel_err, "mel_gaps": mel_gaps, "wav_max_abs_err": wav_err,
             "onnx_wav_max_abs_err": onnx_err, "synth_wall_ms": wall * 1e3, "rtf": rtf,
             "traced": trace, "sample": sample_ms}
 
@@ -2919,6 +2953,597 @@ def phase_tok_pos(card: str, seed: int = 0) -> dict:
     if not same or err > TOK_POS_TOL:
         raise SystemExit("the tok_pos tagger on the card disagrees with the CPU's")
     return {"annotations_equal": same, "logits_max_abs_err": err, "line": ms}
+
+
+# -- the edges: native host, mic, server, native client, CLI, harnesses ------
+
+EDGE_MIC_SECONDS = 20.0
+EDGE_SERVER_SLOTS = 4  # slots driven, of server.main's 16
+EDGE_SERVER_SECONDS = 3.0
+EDGE_SERVER_TICKS = 10  # 3 s at 0.64 s an update, then the finals and the flush
+EDGE_LIVE_PAUSE = 0.05  # s between a live stream's 0.25 s chunks (5x real time)
+EDGE_G2P_TEXTS = ("hello world", "read the 2nd chapter")
+EDGE_EMBED_TEXTS = ("order a drink", "take the survey", "yes")
+RESAMPLE_TOL = 1e-5  # the native resampler against the Python one (tests/test_native_host.py)
+SEGMENT_TOL = 1e-6  # native segment times (s) and audio against the Python segmenter
+
+
+def _oracle_probs(probs):
+    """A hop-probability function that replays ``probs`` (then 0)."""
+    it = iter(list(probs))
+    return lambda hops: np.asarray([next(it, 0.0) for _ in range(hops.shape[0])], np.float32)
+
+
+def phase_native_host(card: str) -> dict:
+    """``runtime/native_host``: libmoonshine_host.so built from the port's
+    copy with g++ (a failed build ends the run: no fallback here), then
+    ``native_resample``, ``NativeRing`` (wraparound and overflow) and
+    ``NativeSegmenter`` against the port's Python resampler and
+    ``VadSegmenter``, as tests/test_native_host.py holds them."""
+    from moonshine_tpu_torch.audio.resample import resample_audio
+    from moonshine_tpu_torch.pipeline.vad_segmenter import VadSegmenter
+    from moonshine_tpu_torch.runtime import native_host as nh
+
+    t0 = time.perf_counter()
+    path = nh.build_native(force=True)
+    build_s = time.perf_counter() - t0
+    lib = nh.load(auto_build=False) if path is not None else None
+    if lib is None:
+        raise SystemExit("libmoonshine_host.so did not build from the port's sources")
+    rng = np.random.default_rng(0)
+    resample_err = 0.0
+    for in_rate, out_rate in ((44100, 16000), (8000, 16000), (16000, 16000), (48000, 16000)):
+        audio = rng.standard_normal(in_rate // 7).astype(np.float32)
+        ours, ref = nh.native_resample(audio, in_rate, out_rate), resample_audio(audio, in_rate,
+                                                                                 out_rate)
+        if ours.shape != ref.shape:
+            raise SystemExit(f"native_resample {in_rate}->{out_rate} gave {ours.shape}, "
+                             f"the Python path {ref.shape}")
+        resample_err = max(resample_err, float(np.abs(ours - ref).max()))
+    ring = nh.NativeRing(100)
+    a, b = np.arange(80, dtype=np.float32), np.arange(100, 170, dtype=np.float32)
+    ring_ok = (ring.capacity == 100 and ring.write(a) == 80
+               and np.array_equal(ring.read(50), a[:50]) and ring.write(b) == 70
+               and np.array_equal(ring.read(200), np.concatenate([a[50:], b]))
+               and ring.write(np.ones(200, np.float32)) == 100 and ring.available == 100)
+    hop = 512
+    cases = [([0.0, 0.9, 0.9, 0.9, 0.9, 0.0, 0.0], {}),
+             ([0.9] * 5, {"max_segment_sample_count": 0}),
+             ([1.0] * 40, {"max_segment_sample_count": 10 * hop}),
+             ([1.0] * 40, {"max_segment_sample_count": 10 * hop, "threshold": 0.0}),
+             ([0.0, 0.9, 0.9, 0.0] * 3, {})]
+    segments, seg_ok = 0, True
+    for probs, kw in cases:
+        audio = rng.standard_normal(len(probs) * hop).astype(np.float32) * 0.1
+        py = VadSegmenter(_oracle_probs(probs), window_size=1, **kw)
+        nat = nh.NativeSegmenter(_oracle_probs(probs), window_size=1, **kw)
+        for s in (py, nat):
+            s.start()
+            s.process_audio(audio)
+            s.stop()
+        ps, ns = py.segments, nat.segments
+        segments += len(ns)
+        seg_ok &= len(ps) == len(ns) and all(
+            p.is_complete == n.is_complete and abs(p.start_time - n.start_time) <= SEGMENT_TOL
+            and abs(p.end_time - n.end_time) <= SEGMENT_TOL
+            and p.audio_data.shape == n.audio_data.shape
+            and np.allclose(p.audio_data, n.audio_data, atol=SEGMENT_TOL, rtol=0)
+            for p, n in zip(ps, ns))
+        seg_ok &= (py.retained_segment_audio_byte_count() == nat.retained_segment_audio_byte_count()
+                   and py.completed_segment_audio_byte_count()
+                   == nat.completed_segment_audio_byte_count())
+    log(f"  {path.name} {lib.mt_host_version().decode()} built with g++ in {build_s:.2f} s; "
+        f"native_resample against the Python path max_abs_err {resample_err:.3e} (tolerance "
+        f"{RESAMPLE_TOL:g}); NativeRing wraparound and overflow {ring_ok}; NativeSegmenter "
+        f"{len(cases)} cases, {segments} segments equal to VadSegmenter's {seg_ok} (host code, "
+        f"on the card's host: {card})")
+    if resample_err > RESAMPLE_TOL or not ring_ok or not seg_ok:
+        raise SystemExit("the native host runtime disagrees with the port's Python paths")
+    return {"build_s": build_s, "resample_max_abs_err": resample_err, "ring_ok": ring_ok,
+            "segmenter_cases": len(cases), "segments": segments}
+
+
+def _line_rows(transcript) -> list:
+    return [(line.text, line.start_time, line.duration, line.is_complete)
+            for line in transcript.lines]
+
+
+def phase_mic(tokenizer_path: str, root: str, card: str) -> dict:
+    """``mic.MicTranscriber().use_transcriber(Transcriber(model="base"))`` on
+    the card (the VAD off: a random-weight VAD hears no speech in synthetic
+    speech) over a ``WavSource(pace=False)`` of EDGE_MIC_SECONDS of
+    ``two_speaker_conversation``, through the native ring; then the same
+    audio through a CPU ``Transcriber`` with the same weights, behind the
+    same kind of mic.  Lines and text must be equal; each line's final
+    text comes from its completed segment (the partial passes follow the
+    host's clock)."""
+    from moonshine_tpu_torch import Transcriber
+    from moonshine_tpu_torch.audio.wav import save_wav
+    from moonshine_tpu_torch.mic import MicTranscriber, WavSource
+    from moonshine_tpu_torch.runtime.native_host import NativeRing
+
+    audio, _ = two_speaker_conversation(EDGE_MIC_SECONDS, seed=4)
+    path = os.path.join(root, "mic.wav")
+    save_wav(path, audio, SAMPLE_RATE)
+    card_tr = Transcriber(model="base", tokenizer_path=tokenizer_path).with_options(
+        vad_threshold=0).load()
+    cpu_tr = Transcriber(model="base", tokenizer_path=tokenizer_path, device="cpu").with_params(
+        copy.deepcopy(card_tr.model).to("cpu")).with_options(vad_threshold=0).load()
+    if card_tr.device.type != "cuda":
+        raise SystemExit("the mic's Transcriber is not on cuda")
+    runs = {}
+    for name, tr in (("cuda", card_tr), ("cpu", cpu_tr)):
+        texts = []
+        mic = MicTranscriber().use_transcriber(tr).audio_source(
+            WavSource(path, pace=False)).on_text(texts.append).load()
+        t0 = time.perf_counter()
+        mic.start()
+        mic._thread.join(timeout=300.0)
+        if mic._thread.is_alive():
+            raise SystemExit(f"the {name} mic's capture thread did not drain its source")
+        ring = mic._ring
+        transcript = mic.stop()
+        runs[name] = {"wall_s": time.perf_counter() - t0, "lines": _line_rows(transcript),
+                      "text": transcript.text, "events": len(texts),
+                      "native_ring": isinstance(ring, NativeRing)}
+    card_run, cpu_run = runs["cuda"], runs["cpu"]
+    same = card_run["lines"] == cpu_run["lines"] and card_run["text"] == cpu_run["text"]
+    log(f"  {EDGE_MIC_SECONDS:g} s through MicTranscriber: card wall {card_run['wall_s']:.3f} s "
+        f"({len(card_run['lines'])} lines, {card_run['events']} text events, native ring "
+        f"{card_run['native_ring']}); cpu wall {cpu_run['wall_s']:.3f} s; lines and text equal "
+        f"{same}; first line {card_run['lines'][0][0][:50] if card_run['lines'] else None!r} "
+        f"on {card}")
+    if not card_run["native_ring"]:
+        raise SystemExit("the mic's ring is not the native ring")
+    if not same or not card_run["lines"] or not all(row[3] for row in card_run["lines"]):
+        raise SystemExit("the mic on the card does not transcribe as the cpu's")
+    return {"wall_s": card_run["wall_s"], "cpu_wall_s": cpu_run["wall_s"],
+            "lines": len(card_run["lines"]), "text_events": card_run["events"]}
+
+
+class FakeSocket:
+    """A stand-in for a WebSocket connection: ``recv`` and ``async for``
+    give ``incoming`` in order (``async for`` waits ``pause`` s before each
+    message), ``send`` keeps what the server sends."""
+
+    def __init__(self, incoming=(), pause: float = 0.0):
+        self.incoming, self.sent, self.closed = list(incoming), [], False
+        self.pause = pause
+
+    async def send(self, message) -> None:
+        self.sent.append(message)
+
+    async def recv(self):
+        return self.incoming.pop(0)
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self):
+        if not self.incoming:
+            raise StopAsyncIteration
+        await asyncio.sleep(self.pause)
+        return self.incoming.pop(0)
+
+    async def close(self) -> None:
+        self.closed = True
+
+
+def _energy_hop_prob(hops: np.ndarray) -> np.ndarray:
+    """tests/test_native_client.py's speech-clip VAD: voiced where a hop
+    has energy."""
+    return (np.abs(hops).mean(axis=1) > 0.05).astype(np.float32)
+
+
+def drive_server(device: str, embedder) -> dict:
+    """``server.make_server`` (server.main's defaults: tiny_streaming, 16
+    streams, seeded weights) on ``device``, driven without a socket:
+    ``_acquire_slot`` for EDGE_SERVER_SLOTS streams, their audio and stop
+    as ``_handle_stream`` applies them, then EDGE_SERVER_TICKS ticks of
+    ``_update_loop`` on its own thread (no sleep between them), its
+    payloads collected by an event loop; then one ``_handle_rpc`` of each
+    kind through a FakeSocket."""
+    import threading
+
+    from moonshine_tpu_torch import server as srv
+
+    server = srv.make_server(["--device", device, "--tick", "0"])
+    server._vad_hop_prob_fn = _energy_hop_prob
+    server._embedder = embedder
+    loop = asyncio.new_event_loop()
+    server._loop = loop
+    slots = [server._acquire_slot() for _ in range(EDGE_SERVER_SLOTS)]
+    for i, slot in enumerate(slots):
+        audio, _ = two_speaker_conversation(EDGE_SERVER_SECONDS, seed=20 + i)
+        conn = srv._Conn(slot=slot, sample_rate=SAMPLE_RATE, queue=asyncio.Queue())
+        server._conns[slot] = conn
+        server.service.add_audio(slot, audio)
+        server.service.close_slot(slot)
+        conn.stopping = True
+    real_update, walls = server.service.update, []
+
+    def counted_update(*args, **kw):
+        t0 = time.perf_counter()
+        events = real_update(*args, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(walls) == EDGE_SERVER_TICKS:
+            server._running = False
+        return events
+
+    server.service.update = counted_update
+    server._running = True
+    thread = threading.Thread(target=server._update_loop, daemon=True)
+    thread.start()
+    thread.join(timeout=300.0)
+    if thread.is_alive():
+        raise SystemExit("the server's update loop did not stop")
+    loop.run_until_complete(asyncio.sleep(0))  # run the queued put_nowait callbacks
+    payloads = {}
+    for slot in slots:
+        q, got = server._conns[slot].queue, []
+        while not q.empty():
+            got.append({k: v for k, v in q.get_nowait().items() if k != "latency_ms"})
+        payloads[slot] = got
+    loop.close()
+
+    clip = np.zeros(8 * SAMPLE_RATE, np.float32)
+    clip[2 * SAMPLE_RATE:7 * SAMPLE_RATE] = synthetic_clip(5.0, 30) * 2.0
+    requests = [("tts", {"type": "tts", "text": "hello world"}, []),
+                ("g2p", {"type": "g2p", "text": EDGE_G2P_TEXTS[0]}, []),
+                ("g2p 2", {"type": "g2p", "text": EDGE_G2P_TEXTS[1]}, []),
+                ("embed", {"type": "embed", "texts": list(EDGE_EMBED_TEXTS)}, []),
+                ("speech_clip", {"type": "speech_clip", "sample_rate": SAMPLE_RATE},
+                 [clip.tobytes(), json.dumps({"type": "end"})]),
+                ("catalog", {"type": "catalog", "kind": "stt_catalog"}, [])]
+    rpc, rpc_ms = {}, {}
+    for name, msg, incoming in requests:
+        sock = FakeSocket(incoming)
+        t0 = time.perf_counter()
+        asyncio.run(server._handle_rpc(sock, msg))
+        rpc_ms[name] = (time.perf_counter() - t0) * 1e3
+        if not sock.closed or not sock.sent:
+            raise SystemExit(f"the {name} RPC did not answer and close")
+        # The catalog's document rides a binary frame as UTF-8 JSON; TTS
+        # audio and embeddings ride theirs as little-endian float32.
+        rpc[name] = [json.loads(m) if isinstance(m, str)
+                     else json.loads(m.decode()) if name == "catalog"
+                     else np.frombuffer(m, "<f4") for m in sock.sent]
+    return {"payloads": payloads, "rpc": rpc, "rpc_ms": rpc_ms, "tick_ms": [w * 1e3 for w in walls],
+            "device": str(server.device), "streams": server.service.S}
+
+
+def drive_server_live(device: str) -> dict:
+    """``server.make_server`` on ``device`` as it serves: its device loop
+    ticks on its own thread (0.02 s a tick) while EDGE_SERVER_SLOTS streams
+    arrive through ``_handle_stream`` on the event loop's thread, each a
+    FakeSocket that hands over 0.25 s of audio every EDGE_LIVE_PAUSE s and
+    then stops.  Which update saw which audio follows the clock, so the
+    texts are not compared: each stream must end on one ``stopped`` after
+    at least one final, with its final segment ids in order, and every
+    slot must come back free."""
+    import threading
+
+    from moonshine_tpu_torch import server as srv
+
+    server = srv.make_server(["--device", device, "--tick", "0.02"])
+    quarter = SAMPLE_RATE // 4
+    socks = []
+    for i in range(EDGE_SERVER_SLOTS):
+        audio, _ = two_speaker_conversation(EDGE_SERVER_SECONDS, seed=20 + i)
+        chunks = [audio[k:k + quarter].tobytes() for k in range(0, len(audio), quarter)]
+        socks.append(FakeSocket([json.dumps({"type": "start", "sample_rate": SAMPLE_RATE})]
+                                + chunks + [json.dumps({"type": "stop"})],
+                                pause=EDGE_LIVE_PAUSE))
+
+    async def run() -> None:
+        server._loop = asyncio.get_running_loop()
+        server._running = True
+        thread = threading.Thread(target=server._update_loop, daemon=True)
+        thread.start()
+        try:
+            await asyncio.wait_for(asyncio.gather(
+                *(server._handle_stream(sock, sock.incoming.pop(0)) for sock in socks)),
+                timeout=120.0)
+        finally:
+            server._running = False
+            await asyncio.to_thread(thread.join, 30.0)
+        if thread.is_alive():
+            raise SystemExit("the live server's update loop did not stop")
+
+    t0 = time.perf_counter()
+    asyncio.run(run())
+    wall = time.perf_counter() - t0
+    streams = [[json.loads(m) for m in sock.sent] for sock in socks]
+    ok = all(
+        ps and ps[-1]["type"] == "stopped" and [p["type"] for p in ps].count("stopped") == 1
+        and any(p["type"] == "final" for p in ps)
+        and [p["segment"] for p in ps if p["type"] == "final"]
+        == sorted(p["segment"] for p in ps if p["type"] == "final")
+        for ps in streams)
+    freed = not server._conns and sorted(server._free) == list(range(server.service.S))
+    return {"wall_s": wall, "ok": ok, "freed": freed,
+            "kinds": [p["type"] for ps in streams for p in ps]}
+
+
+def phase_server(card_emb, cpu_emb, card: str) -> dict:
+    """``TranscriptionServer`` over ``StreamingService`` at tiny_streaming's
+    full width with server.main's 16 streams, driven without a socket
+    (``drive_server``) on the card and on the CPU: the stream payloads
+    (all but ``latency_ms``) must be equal; the RPCs' JSON headers equal,
+    TTS audio within WAVEFORM_TOL and embeddings within EMBED_TOL (the
+    [tts and voice loop] and [embeddings] bounds; ``embed`` runs the
+    [embeddings] phase's EmbeddingGemma on each device), G2P, speech-clip
+    bounds and the catalog equal.  ``websockets`` is not needed: the
+    socket is a stand-in."""
+    card_run = drive_server("cuda", card_emb)
+    cpu_run = drive_server("cpu", cpu_emb)
+    live = drive_server_live("cuda")
+    if card_run["device"].split(":")[0] != "cuda":
+        raise SystemExit("the server's service is not on cuda")
+    payloads_equal = card_run["payloads"] == cpu_run["payloads"]
+    kinds = [p["type"] for ps in card_run["payloads"].values() for p in ps]
+    flushed = all(ps and ps[-1]["type"] == "stopped" and any(p["type"] == "final" for p in ps)
+                  for ps in card_run["payloads"].values())
+    errs, rpc_ok = {}, True
+    for name, card_msgs in card_run["rpc"].items():
+        cpu_msgs = cpu_run["rpc"][name]
+        rpc_ok &= len(card_msgs) == len(cpu_msgs) and card_msgs[0].get("type") != "error"
+        for a, b in zip(card_msgs, cpu_msgs):
+            if not isinstance(a, np.ndarray):
+                rpc_ok &= a == b
+            else:
+                errs[name] = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+    rpc_ok &= errs.get("tts", np.inf) <= WAVEFORM_TOL and errs.get("embed", np.inf) <= EMBED_TOL
+    clip = card_run["rpc"]["speech_clip"][0]
+    ticks = card_run["tick_ms"]
+    log(f"  server.make_server() on {card_run['device']}: {card_run['streams']} streams, "
+        f"{EDGE_SERVER_SLOTS} driven with {EDGE_SERVER_SECONDS:g} s each; {len(ticks)} ticks of "
+        f"_update_loop, tick ms median {statistics.median(ticks):.3f} (first {ticks[0]:.3f}, max "
+        f"{max(ticks):.3f}); {kinds.count('partial')} partial, {kinds.count('final')} final, "
+        f"{kinds.count('stopped')} stopped payloads; card against cpu payloads equal "
+        f"{payloads_equal} on {card}")
+    log("  RPC ms on the card (cpu): " + ", ".join(
+        f"{k} {v:.2f} ({cpu_run['rpc_ms'][k]:.2f})" for k, v in card_run["rpc_ms"].items())
+        + f"; card against cpu: tts {errs.get('tts', np.nan):.3e} (tolerance "
+        f"{WAVEFORM_TOL:g}), embed {errs.get('embed', np.nan):.3e} (tolerance {EMBED_TOL:g}), "
+        f"headers, IPA, clip and catalog equal {rpc_ok}; clip {clip}")
+    live_kinds = live["kinds"]
+    log(f"  live: {EDGE_SERVER_SLOTS} streams through _handle_stream while _update_loop ticks, "
+        f"{len(live_kinds)} payloads ({live_kinds.count('partial')} partial, "
+        f"{live_kinds.count('final')} final, {live_kinds.count('stopped')} stopped) in "
+        f"{live['wall_s']:.3f} s; each ends on stopped after a final, finals in order "
+        f"{live['ok']}; every slot free {live['freed']} on {card}")
+    if not payloads_equal or not flushed:
+        raise SystemExit("the server's stream payloads on the card differ from the cpu's")
+    if not live["ok"] or not live["freed"]:
+        raise SystemExit("the live server broke its stream protocol on the card")
+    if not rpc_ok or not clip.get("found"):
+        raise SystemExit("the server's RPCs on the card disagree with the cpu's")
+    return {"tick_ms": ticks, "cpu_tick_ms": cpu_run["tick_ms"], "rpc_ms": card_run["rpc_ms"],
+            "cpu_rpc_ms": cpu_run["rpc_ms"], "rpc_max_abs_err": errs,
+            "live_wall_s": live["wall_s"],
+            "payloads": {k: len(v) for k, v in card_run["payloads"].items()}}
+
+
+def phase_native_client(card: str) -> dict:
+    """``runtime/native_client``: libmoonshine_client.so and client_selftest
+    built from the port's copy with g++ (a failed build ends the run), the
+    selftest run (SHA-1, base64, JSON, the RFC 6455 frame codec).  The
+    loopback needs ``websockets`` on the server side, which this machine's
+    packages may lack, so it runs in the CPU tests only
+    (tests/test_torch_native_client.py)."""
+    from moonshine_tpu_torch.runtime import native_client as nc
+
+    t0 = time.perf_counter()
+    lib_path, exe = nc.build_native(force=True), nc.build_selftest(force=True)
+    build_s = time.perf_counter() - t0
+    if lib_path is None or exe is None or nc.load(auto_build=False) is None:
+        raise SystemExit("the native client did not build from the port's sources")
+    t0 = time.perf_counter()
+    out = subprocess.run([str(exe), "500"], capture_output=True, text=True, timeout=300)
+    run_s = time.perf_counter() - t0
+    ok = out.returncode == 0 and "client_selftest OK" in out.stdout
+    log(f"  {lib_path.name} {nc.load().mt_client_version().decode()} and client_selftest built "
+        f"with g++ in {build_s:.2f} s; selftest {out.stdout.strip()!r} in {run_s:.2f} s; the "
+        f"WebSocket loopback runs in the CPU tests only (the server side needs websockets); "
+        f"on {card}")
+    if not ok:
+        raise SystemExit(f"client_selftest failed: {out.stdout[-500:]} {out.stderr[-500:]}")
+    return {"build_s": build_s, "selftest_s": run_s}
+
+
+def run_cli(argv) -> tuple[int, str, str]:
+    """``cli.main(argv)`` with its standard output and error captured."""
+    import contextlib
+    import io
+
+    from moonshine_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def phase_cli_and_download(ea, catalog_root: str, root: str, card: str) -> dict:
+    """The CLI on the card: ``transcribe`` with Base through the cache that
+    [checkpoint and catalog] wrote (MOONSHINE_TPU_CACHE), the VAD off,
+    against ``--device cpu`` (the same lines); ``models --json`` (the
+    catalog), ``g2p`` and ``tts --voice klatt``.  Then ``download base``
+    from a local http.server that serves that cache on 127.0.0.1 (nothing
+    leaves the host) into a second cache: the files byte for byte.  K1's
+    launches are counted over the card's transcribe alone."""
+    import http.server
+    import threading
+    from functools import partial
+
+    from moonshine_tpu_torch import catalog
+    from moonshine_tpu_torch.audio.wav import load_wav, save_wav
+    from moonshine_tpu_torch.tts.g2p import GraphemeToPhonemizer
+
+    wav = os.path.join(root, "cli.wav")
+    save_wav(wav, synthetic_clip(BATCHED_SECONDS, 12), SAMPLE_RATE)
+    old = os.environ.get("MOONSHINE_TPU_CACHE")
+    os.environ["MOONSHINE_TPU_CACHE"] = catalog_root
+    try:
+        argv = ["transcribe", wav, "--model", "base", "--vad-threshold", "0"]
+        ea.encoder_attention_packed.launches = 0
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(argv)
+        transcribe_s = time.perf_counter() - t0
+        k1 = ea.encoder_attention_packed.launches
+        rc_cpu, out_cpu, _ = run_cli(argv + ["--device", "cpu"])
+    finally:
+        if old is None:
+            del os.environ["MOONSHINE_TPU_CACHE"]
+        else:
+            os.environ["MOONSHINE_TPU_CACHE"] = old
+    transcribe_ok = rc == rc_cpu == 0 and out == out_cpu and out.startswith("[")
+    rc_models, models, _ = run_cli(["models", "--json"])
+    models_ok = rc_models == 0 and json.loads(models) == json.loads(catalog.catalog_json())
+    rc_g2p, ipa, _ = run_cli(["g2p", EDGE_G2P_TEXTS[0]])
+    g2p_ok = rc_g2p == 0 and ipa.strip() == GraphemeToPhonemizer("en").text_to_ipa(
+        EDGE_G2P_TEXTS[0]) != ""
+    klatt_wav = os.path.join(root, "klatt.wav")
+    t0 = time.perf_counter()
+    rc_tts, tts_out, _ = run_cli(["tts", "seven", "--voice", "klatt", "-o", klatt_wav])
+    tts_s = time.perf_counter() - t0
+    audio, sr = load_wav(klatt_wav) if rc_tts == 0 else (np.zeros(0), 0)
+    tts_ok = rc_tts == 0 and sr == 22050 and audio.size > 0 and np.isfinite(audio).all()
+
+    handler = partial(http.server.SimpleHTTPRequestHandler, directory=catalog_root)
+    handler.log_message = lambda *a: None
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    serve = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serve.start()
+    dest_root = os.path.join(root, "downloaded")
+    old = os.environ.get("MOONSHINE_TPU_CACHE")
+    os.environ["MOONSHINE_TPU_CACHE"] = dest_root
+    try:
+        t0 = time.perf_counter()
+        rc_dl, dl_out, dl_err = run_cli(["download", "base", "--base-url",
+                                         f"http://127.0.0.1:{httpd.server_port}"])
+        download_s = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        serve.join(timeout=30.0)
+        if old is None:
+            del os.environ["MOONSHINE_TPU_CACHE"]
+        else:
+            os.environ["MOONSHINE_TPU_CACHE"] = old
+    files, same_bytes = ("model.safetensors", "tokenizer.bin"), True
+    for name in files:
+        with open(os.path.join(catalog_root, "base-en", name), "rb") as f:
+            src = f.read()
+        got = os.path.join(dest_root, "base-en", name)
+        same_bytes &= os.path.exists(got) and open(got, "rb").read() == src
+    size = os.path.getsize(os.path.join(catalog_root, "base-en", "model.safetensors"))
+    log(f"  cli transcribe (Base from the catalog) on cuda in {transcribe_s:.3f} s, "
+        f"{out.count(chr(10))} lines, K1 {k1} launches, equal to --device cpu {transcribe_ok}; "
+        f"models --json is the catalog {models_ok}; g2p {ipa.strip()!r} {g2p_ok}; tts --voice "
+        f"klatt {audio.size} samples at {sr} Hz in {tts_s:.3f} s ({tts_out.strip()!r})")
+    log(f"  cli download base from 127.0.0.1 into a fresh cache: rc {rc_dl}, {len(files)} files "
+        f"({size / 1e6:.1f} MB checkpoint) in {download_s:.3f} s, byte for byte {same_bytes}; "
+        f"on {card}")
+    if not transcribe_ok or not k1:
+        raise SystemExit(f"cli transcribe on the card failed or differs from the cpu's: {err}")
+    if not (models_ok and g2p_ok and tts_ok):
+        raise SystemExit("cli models, g2p or tts failed")
+    if rc_dl != 0 or not same_bytes:
+        raise SystemExit(f"cli download failed: {dl_out} {dl_err}")
+    return {"transcribe_s": transcribe_s, "k1_launches": k1, "tts_s": tts_s,
+            "download_s": download_s, "download_bytes": size}
+
+
+def phase_latency_and_fleurs(tokenizer_path: str, root: str, card: str) -> dict:
+    """``eval/latency.run_latency_bench`` over ``Transcriber(model="base")``
+    on the card (the VAD off, 21 ms chunks, 0.5 s updates) on 10 s of
+    ``two_speaker_conversation``: compute as % of audio and the average
+    post-phrase latency.  Then ``eval/fleurs.evaluate_languages`` with the
+    same Base model over a synthetic corpus of two languages, ``ja`` (CER)
+    and ``en`` (WER), three wav + txt pairs each.  Both run again on a CPU
+    ``Transcriber`` with the same weights: the transcript text, the number
+    of completed lines, each language's hypotheses and its table (all but
+    the timings) must be equal.  A line's final text comes from its
+    completed segment alone, so the host's clock does not enter them."""
+    from moonshine_tpu_torch import Transcriber
+    from moonshine_tpu_torch.audio.wav import save_wav
+    from moonshine_tpu_torch.core.config import BASE
+    from moonshine_tpu_torch.core.tokenizer import BinTokenizer
+    from moonshine_tpu_torch.eval import fleurs
+    from moonshine_tpu_torch.eval.latency import run_latency_bench
+
+    audio, _ = two_speaker_conversation(10.0, seed=6)
+    wav = os.path.join(root, "latency.wav")
+    save_wav(wav, audio, SAMPLE_RATE)
+    opts = dict(vad_threshold=0, vad_max_segment_duration=4.0)
+    tr = Transcriber(model="base", tokenizer_path=tokenizer_path).with_options(**opts).load()
+    cpu_tr = Transcriber(model="base", tokenizer_path=tokenizer_path, device="cpu").with_params(
+        copy.deepcopy(tr.model).to("cpu")).with_options(**opts).load()
+    if tr.device.type != "cuda":
+        raise SystemExit("the latency bench's Transcriber is not on cuda")
+    lat = run_latency_bench(tr, wav, update_interval=0.5)
+    cpu_lat = run_latency_bench(cpu_tr, wav, update_interval=0.5)
+    lat_same = lat["text"] == cpu_lat["text"] and lat["completed_lines"] == cpu_lat["completed_lines"]
+
+    corpus = os.path.join(root, "fleurs")
+    texts = {"ja": ("数学の本", "東京に行きます", "良い天気"), "en": ("W3 W4", "SOME WORDS", "W7")}
+    for lang, lines in texts.items():
+        os.makedirs(os.path.join(corpus, lang))
+        for i, text in enumerate(lines):
+            save_wav(os.path.join(corpus, lang, f"u{i}.wav"), synthetic_clip(2.0 + i, 40 + i),
+                     SAMPLE_RATE)
+            with open(os.path.join(corpus, lang, f"u{i}.txt"), "w") as f:
+                f.write(text + "\n")
+    tok = BinTokenizer.from_file(tokenizer_path)
+    # evaluate_languages pops each language's hypotheses from its table:
+    # keep them from the evaluate calls it makes.
+    real_evaluate, hyps = fleurs.evaluate, []
+
+    def recording_evaluate(*args, **kw):
+        out = real_evaluate(*args, **kw)
+        hyps[-1].append(list(out["hyps"]))
+        return out
+
+    tables, fleurs_s = {}, {}
+    fleurs.evaluate = recording_evaluate
+    try:
+        for name, model in (("cuda", tr.model), ("cpu", cpu_tr.model)):
+            hyps.append([])
+            t0 = time.perf_counter()
+            tables[name] = fleurs.evaluate_languages(lambda lang: (model, BASE, tok), corpus,
+                                                     batch_size=4)
+            fleurs_s[name] = time.perf_counter() - t0
+    finally:
+        fleurs.evaluate = real_evaluate
+    table = tables["cuda"]
+    scored = ("metric", "cer", "wer", "errors", "words", "utterances", "audio_seconds")
+    fleurs_same = hyps[0] == hyps[1] and all(
+        table[lang].get(k) == tables["cpu"].get(lang, {}).get(k) for lang in table for k in scored)
+    log(f"  latency bench, {lat['audio_seconds']:.2f} s on cuda: compute {lat['compute_percent_of_audio']:.2f} % "
+        f"of audio, average post-phrase latency {lat['avg_post_phrase_latency_ms']:.3f} ms over "
+        f"{lat['completed_lines']} lines, wall {lat['wall_seconds']:.3f} s (cpu: "
+        f"{cpu_lat['compute_percent_of_audio']:.2f} %, {cpu_lat['wall_seconds']:.3f} s); text and "
+        f"lines equal to the cpu's {lat_same}; fleurs {fleurs_s['cuda']:.3f} s (cpu "
+        f"{fleurs_s['cpu']:.3f} s): "
+        + ", ".join(f"{k} {v['metric']} {v.get(v['metric'], v.get('wer')):.3f} over "
+                    f"{v['utterances']} utterances" for k, v in table.items())
+        + f"; hypotheses and tables equal to the cpu's {fleurs_same} on {card}")
+    if lat["completed_lines"] < 2 or not np.isfinite(lat["avg_post_phrase_latency_ms"]):
+        raise SystemExit("the latency bench completed too few lines")
+    if not lat_same or not lat["text"].strip():
+        raise SystemExit("the latency bench on the card does not transcribe as the cpu's")
+    if set(table) != {"ja", "en"} or table["ja"]["metric"] != "cer" \
+            or table["en"]["metric"] != "wer" or not np.isfinite(table["ja"]["cer"]):
+        raise SystemExit(f"evaluate_languages gave {table}")
+    if not fleurs_same or not any(h for per_lang in hyps[0] for h in per_lang):
+        raise SystemExit("evaluate_languages on the card does not decode as the cpu's")
+    return {"latency": {k: v for k, v in lat.items() if k != "text"},
+            "cpu_latency": {k: v for k, v in cpu_lat.items() if k != "text"}, "fleurs": table,
+            "fleurs_s": fleurs_s["cuda"], "cpu_fleurs_s": fleurs_s["cpu"]}
 
 
 def gather_entry(name: str, replaces: str, launches: int, max_err: float, t: dict,
@@ -3071,12 +3696,10 @@ def main() -> int:
         reset_launches(ea, bg)
         agent = phase_agent(card_emb, cpu_emb, tmp)
         voice_launches["agent"] = kernel_launches(ea, bg)
-        del cpu_emb
         log("[tts and voice loop] TextToSpeech on cuda; TTS -> Transcriber(model='base') -> agent")
         reset_launches(ea, bg)
         voice = phase_voice_loop(ea, tok_path, card_emb, card)
         voice_launches["voice loop"] = kernel_launches(ea, bg)
-        del card_emb
         voice["phases_s"] = time.perf_counter() - t_voice
         log(f"  kernel launches: {voice_launches}; the three voice-agent phases took "
             f"{voice['phases_s']:.1f} s")
@@ -3105,6 +3728,44 @@ def main() -> int:
         log(f"  kernel launches: {item12_launches}; the four phases took {item12_s:.1f} s")
         if not item12_launches["voice clone"]["encoder_attention_packed"]:
             raise SystemExit("K1 did not launch on the voice clone path")
+        # The edges are host code in both packages (no Pallas) around the
+        # models above; K1 runs in the Base encodes of the mic, cli
+        # transcribe and latency paths (in the [cli and download] and
+        # [latency and fleurs] phases the only K1 launches are those of cli
+        # transcribe and of the latency bench: the cpu runs count nothing
+        # and evaluate_languages encodes with the split-head XLA path).
+        t_edges = time.perf_counter()
+        log("[native host] libmoonshine_host.so from the port's sources, against the Python paths")
+        reset_launches(ea, bg)
+        native_host = phase_native_host(card)
+        edge_launches = {"native host": kernel_launches(ea, bg)}
+        log("[mic] mic.MicTranscriber over a WavSource, Transcriber(model='base') on cuda")
+        reset_launches(ea, bg)
+        mic = phase_mic(tok_path, tmp, card)
+        edge_launches["mic"] = kernel_launches(ea, bg)
+        log("[server] TranscriptionServer at server.main's defaults on cuda, without a socket")
+        reset_launches(ea, bg)
+        server = phase_server(card_emb, cpu_emb, card)
+        edge_launches["server"] = kernel_launches(ea, bg)
+        del card_emb, cpu_emb
+        log("[native client] libmoonshine_client.so and client_selftest from the port's sources")
+        reset_launches(ea, bg)
+        native_client = phase_native_client(card)
+        edge_launches["native client"] = kernel_launches(ea, bg)
+        log("[cli and download] cli.main on cuda; download from a local http.server")
+        reset_launches(ea, bg)
+        cli_download = phase_cli_and_download(ea, catalog_root, tmp, card)
+        edge_launches["cli transcribe"] = kernel_launches(ea, bg)
+        log("[latency and fleurs] eval/latency and eval/fleurs over Base on cuda")
+        reset_launches(ea, bg)
+        latency_fleurs = phase_latency_and_fleurs(tok_path, tmp, card)
+        edge_launches["latency"] = kernel_launches(ea, bg)
+        edges_s = time.perf_counter() - t_edges
+        log(f"  kernel launches: {edge_launches}; the six edge phases took {edges_s:.1f} s on "
+            f"{card}")
+        for path in ("mic", "cli transcribe", "latency"):
+            if not edge_launches[path]["encoder_attention_packed"]:
+                raise SystemExit(f"K1 did not launch on the {path} path")
 
     k3, k4 = gather_times["K3 int8"], gather_times["K4"]
     k3_bf16 = gather_times["K3 bf16"]
@@ -3132,7 +3793,8 @@ def main() -> int:
     def on_counted_paths(kernel: str) -> dict:
         return {path: counts[kernel]
                 for path, counts in {**serving_launches, **speaker_launches,
-                                     **voice_launches, **item12_launches}.items()}
+                                     **voice_launches, **item12_launches,
+                                     **edge_launches}.items()}
 
     k1_by_path.update(on_counted_paths("encoder_attention_packed"))
     kernels = [{
@@ -3190,6 +3852,10 @@ def main() -> int:
               "voice_launches": voice_launches, "klatt": klatt,
               "pack_decoder_and_worldlite": pack, "voice_clone": clone, "tok_pos": tok_pos,
               "item12_launches": item12_launches, "item12_s": item12_s,
+              "native_host": native_host, "mic": mic, "server": server,
+              "native_client": native_client, "cli_and_download": cli_download,
+              "latency_and_fleurs": latency_fleurs, "edge_launches": edge_launches,
+              "edges_s": edges_s,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

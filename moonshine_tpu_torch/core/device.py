@@ -8,6 +8,8 @@ own.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -27,3 +29,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def device_scope(device: str | torch.device | None):
+    """A context that makes ``device`` the current CUDA device of the
+    calling thread (nothing for a CPU device).  Each thread has its own
+    current device, so a thread that works for a model on ``cuda:1`` enters
+    this first rather than relying on the thread that started it."""
+    dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()

@@ -5,9 +5,10 @@ reference's eval-librispeech.py: corpus WER with the Whisper normalizer
 and VAD disabled, reference: scripts/eval-librispeech.py:87-155).
 Utterances are bucketed by encoder frame count, padded, batched, and
 decoded greedily or with beam search on the device that holds the model.
-The JAX package's data-parallel ``mesh=`` is not ported yet (ROADMAP.md
-queue 1, item 13): the port's parallel layer (``parallel/``) exists, but
-``evaluate`` does not split its batches over it.
+The JAX package's ``mesh=`` is not ported yet (ROADMAP.md queue 1, item
+14.2): it shards the parameters (``shard_params``), which is weight tensor
+parallelism, and the port's parallel layer (``parallel/``) splits only
+the batch and the encoder attention's heads.
 
 Dataset layout: standard LibriSpeech extraction
 (``<root>/<split>/<spk>/<chap>/<spk>-<chap>-<utt>.flac`` + ``*.trans.txt``)

@@ -2,7 +2,7 @@
 """Run-to-run determinism of the sharded inference path on one CUDA card.
 
     python3 scripts/sharded_determinism.py [--tree ROOT] [--k1-runs 400] [--encodes 40]
-                                           [--cudnn-deterministic]
+                                           [--cudnn-deterministic] [--after-batched]
 
 ``chip_smoke.py [sharded path]`` holds the sharded encode (``attn_impl=
 "pallas_shmap"`` on a world-1 NCCL group and its 1x1 mesh) bit for bit
@@ -16,7 +16,10 @@ times in bf16 and half as many in float32, then encodes the clips
 encode it churns the CUDA caching allocator (random allocations, sometimes
 an ``empty_cache``), as the phases before ``[sharded path]`` leave it.
 Every output is compared bit for bit with the first.  Then it runs
-``chip_smoke.phase_sharded`` itself.  Prints the card and one line per
+``chip_smoke.phase_sharded`` itself.  ``--after-batched`` first runs
+``chip_smoke.phase_batched`` (greedy, B=64) and ``phase_beam`` (beam 4, 128
+clips) in the same process, as chip_smoke.py runs them before ``[sharded
+path]``.  Prints the card and one line per
 check; exits 1 if anything differed.
 
 Two settings that nothing in the port fixes can be tried here:
@@ -42,6 +45,8 @@ def main() -> int:
     parser.add_argument("--encodes", type=int, default=40)
     parser.add_argument("--cudnn-deterministic", action="store_true",
                         help="set torch.backends.cudnn.deterministic")
+    parser.add_argument("--after-batched", action="store_true",
+                        help="run chip_smoke's batched greedy and beam phases first")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -72,6 +77,12 @@ def main() -> int:
     print(f"{cs.card_line()}; checkout {tree}; cudnn.deterministic="
           f"{torch.backends.cudnn.deterministic}; CUBLAS_WORKSPACE_CONFIG="
           f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}", flush=True)
+    if args.after_batched:
+        t0 = time.perf_counter()
+        cs.phase_batched(ea, BASE, 64, cs.card_line())
+        cs.phase_beam(ea, bg, BASE, 128, cs.card_line())
+        print(f"phase_batched and phase_beam ran first, in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     g = torch.Generator().manual_seed(5)
     held = []
 

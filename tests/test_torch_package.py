@@ -48,6 +48,26 @@ def test_no_source_names_jax(path):
     assert "moonshine_tpu." not in text.replace("moonshine_tpu_torch.", "")
 
 
+def _runtime_sources() -> list[str]:
+    """The port's copies of the native runtime and the platform bindings
+    (what a build writes under ``build/`` is not a source)."""
+    root = PORT / "runtime"
+    return sorted(p.relative_to(root).as_posix()
+                  for d in ("native", "bindings") for p in (root / d).rglob("*")
+                  if p.is_file() and "build" not in p.relative_to(root).parts)
+
+
+@pytest.mark.parametrize("path", _runtime_sources())
+def test_runtime_copy_matches_the_reference(path):
+    """Each C/C++, Java, Swift and TypeScript file of the port's runtime has
+    the bytes of the JAX package's, so a fix to one copy cannot miss the
+    other; a deliberate divergence changes this test and ROADMAP queue 3."""
+    ours = PORT / "runtime" / path
+    theirs = REPO / "moonshine_tpu" / "runtime" / path
+    assert theirs.is_file(), f"the reference has no {path}"
+    assert ours.read_bytes() == theirs.read_bytes()
+
+
 def test_default_device_without_cuda_raises(monkeypatch):
     from moonshine_tpu_torch.core.device import resolve_device
 

@@ -196,7 +196,7 @@ def test_facade_speed_option():
 
 
 @pytest.mark.parametrize("voice", ["klatt", "klatt_fast", "neural-pack", "neural-pack-en"])
-def test_unported_voices_raise(voice):
+def test_klatt_and_pack_voices_route_as_jax(voice):
     """The voices that raised until ROADMAP item 12 was ported now route as
     JAX's facade routes them: each call gives JAX's sample rate and length,
     or raises what JAX's raises (the missing voice pack's

@@ -75,7 +75,19 @@ socket: slots, update-loop ticks and every RPC, card against CPU),
 download]`` (``cli transcribe`` through the catalog against ``--device
 cpu``, ``models``, ``g2p``, ``tts``; ``download`` from a loopback
 http.server, byte for byte) and ``[latency and fleurs]``; K1 runs in the
-mic, cli transcribe and latency paths. Every phase that
+mic, cli transcribe and latency paths. Then training and weight tensor
+parallelism: ``[train step]`` (Tiny at full width, one AdamW step on 8
+synthetic 10 s clips against the CPU's, then 50 steps: step time, audio-s/s,
+tokens/s, peak memory, a traced step's idle share and launches),
+``[finetune and checkpoint]`` (``finetune`` over a synthetic wav + txt
+corpus, the safetensors and train-state round trips, the adapted weights
+through ``Transcriber.with_params``), ``[weight TP]`` (``shard_params`` on
+the NCCL 1x1 mesh: the sharded train step and ``evaluate(mesh=)`` with
+greedy and beam 4 against the unsharded ones, K1, K3 and K4 on the rank's
+heads), ``[streaming train]`` (``tiny_streaming``, 4 clips of 4 s, against
+the CPU, then 20 steps) and ``[spelling and diarization train]`` (the JAX
+defaults on the synthetic voices, first steps against the CPU); the
+trainers launch no kernel of the repository. Every phase that
 fails ends the run with a non-zero exit. The last two lines of standard
 output are the kernels' JSON summary and the device JSON; a fuller record
 goes to chiprun_out/chip_smoke.json. Without CUDA, or without the rest of
@@ -2365,10 +2377,15 @@ def traced(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # Kernels only: a user annotation's device row (the optimizer's step)
+    # spans kernels that have rows of their own.
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
     return {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
-            "launches": sum(e.count for e in rows)}
+            "launches": sum(e.count for e in rows),
+            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 
 def device_alone_ms(fn, runs: int = 7) -> dict:
@@ -3546,6 +3563,566 @@ def phase_latency_and_fleurs(tokenizer_path: str, root: str, card: str) -> dict:
             "fleurs_s": fleurs_s["cuda"], "cpu_fleurs_s": fleurs_s["cpu"]}
 
 
+TRAIN_BATCH = 8  # clips of the Tiny train step
+TRAIN_SECONDS = 10.0
+TRAIN_TOKENS = 40
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 50
+# Predicted in PERF.md before the first run on the card: the loss of the 50th
+# step at most this fraction of the first's (reported, not a gate).
+TRAIN_PREDICTED_RATIO = 0.5
+# Card against CPU, one AdamW step from the same weights: the loss to
+# rtol 1e-4 and each gradient leaf within 1e-3 of its largest |g|
+# (float32 sums over up to 8 x 416 frames in another order).  The updated
+# parameters are not held to the CPU's step: Adam's first update
+# lr * m / (sqrt(v) + eps) can give an element whose gradient is near zero
+# a full step of either sign.  They are held instead to the CPU optimizer's
+# update fed the card's own gradients, to two float32 steps of the
+# parameter plus 1e-5 lr (the update's rounding).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL = 1e-3
+TRAIN_PARAM_RTOL = 2.4e-7
+TRAIN_PARAM_ATOL_LR = 1e-5
+STREAM_TRAIN_CLIPS = 4
+STREAM_TRAIN_SECONDS = 4.0
+STREAM_TRAIN_LR = 2e-3
+STREAM_TRAIN_STEPS = 20
+FT_STEPS = 20
+SMALL_TRAIN_LOSS_RTOL = 1e-4
+
+
+class cudnn_deterministic:
+    """cuDNN's deterministic algorithms inside the block (its default
+    backward-filter algorithms may sum with atomics), for runs compared
+    bit for bit."""
+
+    def __enter__(self):
+        self.was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.was
+
+
+def train_batch(cfg, seed: int, dev, batch: int = TRAIN_BATCH, seconds: float = TRAIN_SECONDS,
+                tokens: int = TRAIN_TOKENS):
+    """B synthetic clips, the last quarter of some cut (ragged lengths), and
+    random target tokens of ragged counts, as a ``train.step.Batch``."""
+    from moonshine_tpu_torch.train.step import Batch
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SAMPLE_RATE)
+    audio = np.stack([synthetic_clip(seconds, seed + i) for i in range(batch)])
+    lengths = n - rng.integers(0, n // 4, batch)
+    lengths[0] = n
+    tokens_in = rng.integers(3, cfg.vocab_size, (batch, tokens))
+    tokens_in[:, 0] = cfg.decoder_start_token_id
+    tokens_out = rng.integers(3, cfg.vocab_size, (batch, tokens))
+    counts = rng.integers(tokens // 2, tokens + 1, batch)
+    mask = np.arange(tokens)[None] < counts[:, None]
+    return Batch(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        audio.astype(np.float32), lengths.astype(np.int64), tokens_in.astype(np.int64),
+        tokens_out.astype(np.int64), mask)))
+
+
+def _named(model, grads: bool = False) -> dict:
+    from moonshine_tpu_torch.train.step import trainable_parameters
+
+    return {n: (p.grad if grads else p).detach().float().cpu()
+            for n, p in trainable_parameters(model)}
+
+
+def _grad_gap(card: dict, cpu: dict) -> float:
+    """The largest gradient difference as a fraction of its leaf's
+    largest |g| on the CPU."""
+    return max(float((card[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+               for k, v in cpu.items())
+
+
+def _param_gap(card: dict, cpu: dict) -> float:
+    return max(float((card[k] - v).abs().max()) for k, v in cpu.items())
+
+
+def replay_update(base, optimizer, grads: dict) -> dict:
+    """The first update of ``base``'s trainable parameters (a CPU model) by
+    a fresh CPU ``optimizer`` fed ``grads``: what a step that computed
+    those gradients must have written."""
+    from moonshine_tpu_torch.train.step import trainable_parameters
+
+    model = copy.deepcopy(base)
+    named = dict(trainable_parameters(model))
+    for name, p in named.items():
+        p.requires_grad_(True)
+        p.grad = grads[name].clone()
+    optimizer(list(named.values())).step()
+    return _named(model)
+
+
+def _replay_excess(card: dict, replayed: dict, lr: float) -> float:
+    """The largest |card - replayed| less its bound, over every element
+    (<= 0 when every element is inside)."""
+    return max(float(((card[k] - v).abs() - TRAIN_PARAM_RTOL * v.abs()).max())
+               for k, v in replayed.items()) - TRAIN_PARAM_ATOL_LR * lr
+
+
+def hold_step(what: str, card_loss, cpu_loss, card_grads: dict, cpu_grads: dict,
+              card_params: dict, cpu_params: dict, replayed: dict, lr: float,
+              grad_rel: float = TRAIN_GRAD_REL, loss_rtol: float = TRAIN_LOSS_RTOL) -> dict:
+    """One optimizer step on the card against the same step on the CPU:
+    the loss and the gradients against the CPU's, the updated parameters
+    against ``replayed`` (``replay_update`` of the card's gradients), held
+    to the bounds above; raises with the numbers if it fails.  The gap to
+    the CPU's own updated parameters is printed, not held."""
+    loss_gap = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    grad_gap = _grad_gap(card_grads, cpu_grads)
+    param_gap = _param_gap(card_params, cpu_params)
+    replay_gap = _param_gap(card_params, replayed)
+    excess = _replay_excess(card_params, replayed, lr)
+    out = {"loss_card": float(card_loss), "loss_cpu": float(cpu_loss), "loss_rel_gap": loss_gap,
+           "grad_rel_gap": grad_gap, "param_gap_to_cpu_step": param_gap,
+           "param_gap_to_replay": replay_gap, "param_replay_excess": excess,
+           "loss_rtol": loss_rtol, "grad_rel": grad_rel}
+    ok = loss_gap <= loss_rtol and grad_gap <= grad_rel and excess <= 0
+    log(f"  {what}: loss card {float(card_loss):.6f} cpu {float(cpu_loss):.6f} (rel gap "
+        f"{loss_gap:.3e}, tol {loss_rtol:g}); gradients within {grad_gap:.3e} of each leaf's "
+        f"largest |g| (tol {grad_rel:g}); parameters within {replay_gap:.3e} of the cpu "
+        f"optimizer fed the card's gradients (bound rtol {TRAIN_PARAM_RTOL:g} + "
+        f"{TRAIN_PARAM_ATOL_LR:g} lr, excess {excess:.3e}); {param_gap:.3e} from the cpu's own "
+        f"step (not held) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{what}: the card's step differs from the CPU's beyond its bounds")
+    return out
+
+
+def phase_train_step(ea, card: str, dev: str = "cuda") -> dict:
+    """Tiny at full width (288 wide, 6 + 6 layers, vocabulary 32,768) from a
+    seed, float32, TF32 off: one AdamW step (``train.step.make_train_step``,
+    optax's defaults) on B=8 synthetic 10 s clips with random tokens (S=40,
+    ragged masks), on the card and on the CPU from the same weights, held
+    to the bounds above.  Then 50 steps on that batch on the card: the loss
+    must fall, and its ratio is printed beside PERF.md's prediction; the
+    median step time, training audio-s/s and tokens/s, the peak memory,
+    and one step traced for the device's idle share and its launches.  The
+    training path encodes with the split-head attention, so K1 must not
+    launch."""
+    from moonshine_tpu_torch.core.config import TINY
+    from moonshine_tpu_torch.models import moonshine as mm
+    from moonshine_tpu_torch.train import step as ts
+
+    cfg = TINY
+    base = mm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch_cpu = train_batch(cfg, 1, "cpu")
+    batch = type(batch_cpu)(*(x.to(dev) for x in batch_cpu))
+    opt = ts.adamw(TRAIN_LR)
+    step = ts.make_train_step(cfg, opt)
+    t0 = time.perf_counter()
+    cpu_state, cpu_m = step(ts.make_train_state(base, opt), batch_cpu)
+    cpu_s = time.perf_counter() - t0
+    ea.encoder_attention_packed.launches = 0
+    # The peak counts all that is allocated on the card, what earlier
+    # phases still hold (printed beside it) included.
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.make_train_state(copy.deepcopy(base).to(dev), opt, copy_params=False)
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    card_grads = _named(state.params, True)
+    held = hold_step("one AdamW step, card against cpu", m["loss"], cpu_m["loss"],
+                     card_grads, _named(cpu_state.params, True), _named(state.params),
+                     _named(cpu_state.params), replay_update(base, opt, card_grads), TRAIN_LR)
+    del cpu_state
+
+    losses, times = [float(m["loss"])], []
+    for _ in range(TRAIN_STEPS - 1):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))  # reads the card: the step has ended
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    trace = traced(lambda: step(state, batch))
+    k1 = ea.encoder_attention_packed.launches
+    step_ms = statistics.median(times) * 1e3
+    tokens = int(batch.token_mask.sum())
+    ratio = losses[-1] / losses[0]
+    out = {"cfg": "tiny", "batch": TRAIN_BATCH, "seconds": TRAIN_SECONDS, "tokens": tokens,
+           "lr": TRAIN_LR, "held": held, "cpu_step_s": cpu_s, "losses": losses,
+           "loss_ratio": ratio, "predicted_ratio": TRAIN_PREDICTED_RATIO, "step_ms": step_ms,
+           "step_ms_spread": [min(times) * 1e3, max(times) * 1e3],
+           "audio_s_per_s": TRAIN_BATCH * TRAIN_SECONDS / (step_ms / 1e3),
+           "tokens_per_s": tokens / (step_ms / 1e3), "peak_bytes": peak,
+           "held_before_bytes": held_before, "trace": trace,
+           "k1_launches": k1}
+    log(f"  {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} (ratio {ratio:.4f}, "
+        f"predicted <= {TRAIN_PREDICTED_RATIO}); step {step_ms:.2f} ms median "
+        f"({out['step_ms_spread'][0]:.2f}-{out['step_ms_spread'][1]:.2f}), "
+        f"{out['audio_s_per_s']:.1f} training audio-s/s, {out['tokens_per_s']:.0f} tokens/s, "
+        f"peak {peak / 2**30:.3f} GiB ({held_before / 2**30:.3f} GiB held before the phase); "
+        f"one step traced: {trace['wall_ms']:.2f} ms wall, "
+        f"{trace['device_ms']:.2f} ms of kernels, idle {trace['idle_share']:.3f}, "
+        f"{trace['launches']} launches; K1 launches {k1}; cpu step {cpu_s:.2f} s; on {card}")
+    log("  the traced step's kernels by device time: " + "; ".join(
+        f"{name} {ms:.3f} ms x{count}" for name, ms, count in trace["top"]))
+    if not losses[-1] < 0.9 * losses[0] or not all(np.isfinite(losses)):
+        raise SystemExit(f"the train step's loss did not fall: {losses[0]} -> {losses[-1]}")
+    if k1:
+        raise SystemExit("the training path launched K1, which has no backward")
+    return out
+
+
+def finetune_corpus(root: str, n: int = 8, seed: int = 60):
+    """n wav + txt pairs of 3-9 s and a tokenizer that spells their texts:
+    ``w<i>`` for a first word, ``▁w<i>`` for the others."""
+    from moonshine_tpu_torch.audio.wav import save_wav
+    from moonshine_tpu_torch.core.config import TINY
+    from moonshine_tpu_torch.core.tokenizer import BinTokenizer
+
+    first = 1000
+    vocab = ([b"<unk>", b"<s>", b"</s>"] + [f"w{i}".encode() for i in range(3, first)]
+             + [f"▁w{i}".encode() for i in range(first, TINY.vocab_size)])
+    os.makedirs(root, exist_ok=True)
+    for i, seconds in enumerate(np.linspace(3.0, 9.0, n)):
+        save_wav(os.path.join(root, f"ft{i:02d}.wav"), synthetic_clip(seconds, seed + i),
+                 SAMPLE_RATE)
+        with open(os.path.join(root, f"ft{i:02d}.txt"), "w") as f:
+            f.write(f"w{3 + i} w{first + 7 * i} w{first + 100 + i} w{first + 200 + 3 * i}\n")
+    tok_path = os.path.join(root, "tokenizer.bin")
+    with open(tok_path, "wb") as f:
+        f.write(BinTokenizer(vocab).to_bytes())
+    return tok_path
+
+
+def phase_finetune_and_checkpoint(ea, tmp: str, card: str, dev: str = "cuda") -> dict:
+    """``train.finetune.finetune`` of Tiny (full width, from a seed) over a
+    synthetic wav + txt corpus (8 clips of 3-9 s) with a synthetic
+    BinTokenizer, on the card: its loss must fall.  Then
+    ``export_safetensors`` -> ``import_safetensors`` -> ``export_safetensors``
+    must give the same file byte for byte and the same tensors; a
+    ``TrainState`` checkpoint round trip must resume the exact next step
+    (its loss and every parameter bit-equal to the uninterrupted run's);
+    and the adapted weights transcribe through
+    ``Transcriber(...).with_params(...)`` on the card (K1 in its encode)."""
+    from moonshine_tpu_torch import Transcriber
+    from moonshine_tpu_torch.core.config import TINY, TranscriberOptions, VadOptions
+    from moonshine_tpu_torch.core.tokenizer import BinTokenizer
+    from moonshine_tpu_torch.eval.librispeech import iter_librispeech
+    from moonshine_tpu_torch.models import moonshine as mm
+    from moonshine_tpu_torch.train import checkpoint as tc
+    from moonshine_tpu_torch.train import finetune as tf
+    from moonshine_tpu_torch.train import step as ts
+
+    cfg = TINY
+    root = os.path.join(tmp, "ft_corpus")
+    tok_path = finetune_corpus(root)
+    tok = BinTokenizer.from_file(tok_path)
+    examples = [(u.load_audio(), u.text) for u in iter_librispeech(root)]
+    init = mm.init_params(cfg, torch.Generator().manual_seed(1), dev)
+    t0 = time.perf_counter()
+    res = tf.finetune(cfg, tok, examples, init_params=init, steps=FT_STEPS, batch_size=8,
+                      learning_rate=1e-3, log_every=5)
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    log(f"  finetune: {res.examples} clips, {res.steps} steps in {ft_s:.2f} s, losses "
+        f"{[round(x, 4) for x in res.losses]}")
+    if not res.losses[-1] < res.losses[0]:
+        raise SystemExit("finetune did not lower its loss")
+
+    first, again = os.path.join(tmp, "ft.safetensors"), os.path.join(tmp, "ft_again.safetensors")
+    tc.export_safetensors(first, res.params)
+    back = tc.import_safetensors(first, res.params, cfg)
+    tc.export_safetensors(again, back)
+    with open(first, "rb") as f1, open(again, "rb") as f2:
+        same_bytes = f1.read() == f2.read()
+    same_tensors = all(torch.equal(a, b) for a, b in zip(
+        _named(res.params).values(), _named(back).values()))
+
+    opt = ts.adamw(1e-3)
+    step = ts.make_train_step(cfg, opt)
+    batches = list(tf._batches(cfg, examples, tok, 8, dev))
+    state, _ = step(ts.make_train_state(res.params, opt, cfg=cfg), batches[0])
+    ckpt = os.path.join(tmp, "state.safetensors")
+    tc.save_checkpoint(ckpt, state)
+    restored = tc.restore_checkpoint(ckpt, ts.make_train_state(init, opt))
+    with cudnn_deterministic():
+        cont, m_cont = step(state, batches[-1])
+        resumed, m_res = step(restored, batches[-1])
+    resumes = (resumed.step == cont.step == 2 and torch.equal(m_cont["loss"], m_res["loss"])
+               and all(torch.equal(a, b) for a, b in zip(_named(cont.params).values(),
+                                                       _named(resumed.params).values())))
+
+    ea.encoder_attention_packed.launches = 0
+    t = Transcriber(model=cfg, tokenizer_path=tok_path, device=dev,
+                    options=TranscriberOptions(vad=VadOptions(threshold=0.0)))
+    transcript = t.with_params(res.params).load().transcribe(examples[0][0])
+    k1 = ea.encoder_attention_packed.launches
+    lines = [line.text for line in transcript.lines]
+    log(f"  export -> import -> export: same bytes {same_bytes}, same tensors {same_tensors}; "
+        f"train-state checkpoint resumes the exact next step: {resumes}; "
+        f"Transcriber.with_params: {len(lines)} line(s) {lines[:2]}, K1 launches {k1}; on {card}")
+    if not (same_bytes and same_tensors and resumes and lines and k1):
+        raise SystemExit("the finetune and checkpoint phase failed a check")
+    return {"steps": res.steps, "losses": res.losses, "finetune_s": ft_s,
+            "same_bytes": same_bytes, "resumes": resumes, "lines": len(lines),
+            "k1_launches": k1}
+
+
+def phase_weight_tp(ea, bg, tmp: str, card: str, dev: str = "cuda") -> dict:
+    """Weight tensor parallelism (``parallel.sharding.shard_params``) on a
+    world-1 NCCL group's 1x1 mesh, Tiny at full width, float32: the sharded
+    train step (``shard_train_state``, ``make_train_step(..., mesh)``)
+    against the unsharded one, and ``evaluate(mesh=)`` (greedy and beam 4)
+    against ``evaluate()`` over 4 clips of the finetune corpus.  The counts of K1-K4
+    are set to 0 before the mesh's runs and read after them: beside
+    ``evaluate`` (float KV: K3), an encode with the packed attention (K1 on
+    the rank's heads), a greedy decode and an int8-KV beam 4 decode (K3 and
+    K4 on the rank's head-sharded caches) of the same split model.  The
+    encode and greedy decode are then compared with the unsharded model's
+    bit for bit (repair 2 of the open ``[sharded path]`` entry), and the
+    decodes' tokens must be equal."""
+    import torch.distributed as dist
+
+    from moonshine_tpu_torch.core.config import TINY
+    from moonshine_tpu_torch.core.tokenizer import BinTokenizer
+    from moonshine_tpu_torch.decoding.beam import beam_decode
+    from moonshine_tpu_torch.decoding.greedy import greedy_decode
+    from moonshine_tpu_torch.eval.librispeech import evaluate
+    from moonshine_tpu_torch.models import moonshine as mm
+    from moonshine_tpu_torch.parallel.distributed import initialize
+    from moonshine_tpu_torch.parallel.mesh import make_mesh
+    from moonshine_tpu_torch.parallel.sharding import shard_params
+    from moonshine_tpu_torch.train import step as ts
+
+    cfg = TINY
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    initialize(device=dev)
+    mesh = make_mesh(data=1, model=1, device_type=dev)
+    try:
+        base = mm.init_params(cfg, torch.Generator().manual_seed(2), dev)
+        batch = train_batch(cfg, 5, dev)
+        opt = ts.adamw(TRAIN_LR)
+        with cudnn_deterministic():
+            plain, m_plain = ts.make_train_step(cfg, opt)(ts.make_train_state(base, opt), batch)
+            sharded = ts.shard_train_state(mesh, ts.make_train_state(base, opt))
+            sharded, m_sharded = ts.make_train_step(cfg, opt, mesh)(sharded, batch)
+        p_plain, p_sharded = _named(plain.params), _named(sharded.params)
+        g_plain, g_sharded = _named(plain.params, True), _named(sharded.params, True)
+        # A group of one runs the unsharded step's arithmetic: the loss,
+        # every gradient and every updated parameter must be bit-equal.
+        step_bits = torch.equal(m_plain["loss"], m_sharded["loss"]) and all(
+            torch.equal(g_plain[k], g_sharded[k]) and torch.equal(p_plain[k], p_sharded[k])
+            for k in p_plain)
+        loss_gap = abs(float(m_plain["loss"]) - float(m_sharded["loss"]))
+        grad_gap = _grad_gap(g_sharded, g_plain)
+        param_gap = _param_gap(p_sharded, p_plain)
+        del plain, sharded
+
+        # Larger weights than the initializer's make the random model emit
+        # tokens before EOS (tests/test_torch_eval.py's scaling).
+        model = copy.deepcopy(base)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.dim() >= 2:
+                    p.mul_(3.0)
+        mm.prepare_rotary_params(model, cfg, refresh=True)
+        root = os.path.join(tmp, "ft_corpus")
+        tok = BinTokenizer.from_file(os.path.join(root, "tokenizer.bin"))
+        audio = torch.from_numpy(np.stack([synthetic_clip(9.26, 70 + i) for i in range(8)])).to(dev)
+        caps = torch.full((8,), 40, device=dev)
+        reset_launches(ea, bg)
+        t0 = time.perf_counter()
+        on_mesh = {b: evaluate(model, cfg, tok, root, batch_size=4, limit=4, beam_size=b,
+                               mesh=mesh, return_texts=True) for b in (1, BEAM_SIZE)}
+        split = shard_params(mesh, model)
+        with torch.inference_mode():
+            mem_s, mask_s = mm.encode(split, cfg, audio)
+            greedy_s = greedy_decode(split, cfg, mem_s, mask_s, max_tokens=40, token_caps=caps)
+            beam_s = beam_decode(split, cfg, mem_s, mask_s, beam_size=BEAM_SIZE, max_tokens=40,
+                                 token_caps=caps, kv_int8=True)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        launches = kernel_launches(ea, bg)
+        plain_eval = {b: evaluate(model, cfg, tok, root, batch_size=4, limit=4, beam_size=b,
+                                  return_texts=True) for b in (1, BEAM_SIZE)}
+        with torch.inference_mode():
+            mem, mask = mm.encode(model, cfg, audio)
+            greedy = greedy_decode(model, cfg, mem, mask, max_tokens=40, token_caps=caps)
+            beam = beam_decode(model, cfg, mem, mask, beam_size=BEAM_SIZE, max_tokens=40,
+                               token_caps=caps, kv_int8=True)
+        checks = {
+            "evaluate(mesh=) greedy == evaluate()": on_mesh[1]["hyps"] == plain_eval[1]["hyps"]
+            and on_mesh[1]["wer"] == plain_eval[1]["wer"],
+            f"evaluate(mesh=) beam {BEAM_SIZE} == evaluate()":
+                on_mesh[BEAM_SIZE]["hyps"] == plain_eval[BEAM_SIZE]["hyps"]
+                and on_mesh[BEAM_SIZE]["wer"] == plain_eval[BEAM_SIZE]["wer"],
+            "greedy tokens on the mesh == unsharded": torch.equal(greedy_s.tokens, greedy.tokens),
+            "int8 beam tokens on the mesh == unsharded": torch.equal(beam_s.tokens, beam.tokens),
+            "sharded train step bit-equal (loss, gradients, parameters)": step_bits,
+        }
+        encode_bits = torch.equal(mem_s, mem)
+        greedy_bits = torch.equal(greedy_s.tokens, greedy.tokens) and torch.equal(
+            greedy_s.lengths, greedy.lengths)
+        log(f"  {dist.get_backend()} group of {dist.get_world_size()}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        log(f"  sharded train step vs unsharded: bit-equal {step_bits} (loss gap {loss_gap:.3e}, "
+            f"gradient gap {grad_gap:.3e} of each leaf's largest |g|, parameter gap "
+            f"{param_gap:.3e})")
+        log(f"  repair 2: encode on the 1x1 weight-TP mesh == unsharded: "
+            f"{'bit-identical' if encode_bits else 'DIFFER'}; greedy: "
+            f"{'bit-identical' if greedy_bits else 'DIFFER'}")
+        if not encode_bits:
+            diff = (mem_s.float() - mem.float()).abs()
+            log(f"    memory: {int((diff > 0).sum())} of {diff.numel()} values differ, by at "
+                f"most {float(diff.max()):.3e}")
+        for name, ok in checks.items():
+            log(f"  {name}: {'ok' if ok else 'FAIL'}")
+        log(f"  the mesh's runs took {mesh_s:.2f} s on {card}; launches {launches}; "
+            f"greedy hyps {on_mesh[1]['hyps'][:2]}")
+        if not all(checks.values()):
+            raise SystemExit("weight tensor parallelism differs from the unsharded model")
+        if not (launches["gather_kv_rows"] and launches["gather_scale_rows"]
+                and launches["encoder_attention_packed"] == cfg.encoder_layers):
+            raise SystemExit(f"the weight-TP path launched {launches}")
+        return {"backend": dist.get_backend(), "mesh": list(mesh.shape), "step_bits": step_bits,
+                "loss_gap": loss_gap, "grad_gap": grad_gap, "param_gap": param_gap,
+                "encode_bits": encode_bits,
+                "greedy_bits": greedy_bits, "checks": checks, "launches": launches,
+                "mesh_s": mesh_s}
+    finally:
+        dist.destroy_process_group()
+
+
+def _stream_examples(cfg, seed: int):
+    rng = np.random.default_rng(seed)
+    n = int(STREAM_TRAIN_SECONDS * SAMPLE_RATE) // cfg.frame_len * cfg.frame_len
+    out = []
+    for i in range(STREAM_TRAIN_CLIPS):
+        toks = list(rng.integers(3, cfg.vocab_size, int(rng.integers(12, 21))))
+        out.append((synthetic_clip(STREAM_TRAIN_SECONDS, seed + i)[:n],
+                    np.array([cfg.bos_id] + toks), np.array(toks + [cfg.eos_id]),
+                    np.ones(len(toks) + 1, bool)))
+    return out
+
+
+def phase_streaming_train(card: str, dev: str = "cuda") -> dict:
+    """``tiny_streaming`` at full width from a seed, float32: the batched
+    overfit step (``train.streaming_step.make_batched_overfit_step``, Adam)
+    on 4 synthetic clips of 4 s with random tokens, its first step on the
+    card against the CPU's (the bounds of ``[train step]``), then 20 steps
+    on the card: the loss must fall; the median step time, and one more
+    step traced for the device's idle share and its launches."""
+    from moonshine_tpu_torch.core.config import STREAMING_ARCHS
+    from moonshine_tpu_torch.models import streaming as ms
+    from moonshine_tpu_torch.train import step as ts
+    from moonshine_tpu_torch.train import streaming_step as tss
+
+    cfg = STREAMING_ARCHS["tiny_streaming"]
+    examples = _stream_examples(cfg, 80)
+    base = ms.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    step = tss.make_batched_overfit_step(cfg, ts.adam(STREAM_TRAIN_LR), examples)
+
+    t0 = time.perf_counter()
+    cpu_model, _, cpu_loss = step(copy.deepcopy(base))
+    cpu_s = time.perf_counter() - t0
+    model, opt, loss = step(copy.deepcopy(base).to(dev))
+    card_grads = _named(model, True)
+    held = hold_step("one Adam step, card against cpu", loss, cpu_loss, card_grads,
+                     _named(cpu_model, True), _named(model), _named(cpu_model),
+                     replay_update(base, ts.adam(STREAM_TRAIN_LR), card_grads), STREAM_TRAIN_LR)
+    losses, times = [float(loss)], []
+    for _ in range(STREAM_TRAIN_STEPS - 1):
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times) * 1e3
+    trace = traced(lambda: step(model, opt))
+    log(f"  {STREAM_TRAIN_STEPS} batched steps of {STREAM_TRAIN_CLIPS} x "
+        f"{STREAM_TRAIN_SECONDS:g} s: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{step_ms:.2f} ms median, {STREAM_TRAIN_CLIPS * STREAM_TRAIN_SECONDS / (step_ms / 1e3):.1f} "
+        f"training audio-s/s; one more step traced: {trace['wall_ms']:.2f} ms wall, "
+        f"{trace['device_ms']:.2f} ms of kernels, idle {trace['idle_share']:.3f}, "
+        f"{trace['launches']} launches; cpu step {cpu_s:.2f} s; on {card}")
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        raise SystemExit(f"the streaming trainer's loss did not fall: {losses}")
+    return {"held": held, "losses": losses, "step_ms": step_ms, "cpu_step_s": cpu_s,
+            "trace": trace}
+
+
+def phase_small_trainers(card: str, dev: str = "cuda") -> dict:
+    """The spelling and diarization trainers at the JAX package's defaults,
+    on the card: ``train.spelling.train`` (10 epochs of batch 32, lr 3e-3)
+    on 64 ``spelling_clips`` with labels i % 36; ``train_segmentation`` and
+    ``train_embedding`` (dim 64, 120 steps each) on the crops of the two
+    synthetic voices of ``two_speaker_conversation`` (30 s each), then
+    ``fit_plda`` on the trained embeddings.  Each trainer's first step from
+    the same weights is run on the CPU too: its loss within rtol 1e-4.  The
+    losses after the default step counts and each trainer's time on the
+    card are printed."""
+    from moonshine_tpu_torch.models import diarization as dm
+    from moonshine_tpu_torch.models import spelling as sp
+    from moonshine_tpu_torch.train import diarization as tdz
+    from moonshine_tpu_torch.train import spelling as tsp
+
+    out: dict = {}
+
+    def first_step(what, run):
+        cpu, card_loss = run("cpu"), run(dev)
+        gap = abs(card_loss - cpu) / abs(cpu)
+        log(f"  {what}: first loss card {card_loss:.6f} cpu {cpu:.6f} (rel gap {gap:.3e}, tol "
+            f"{SMALL_TRAIN_LOSS_RTOL:g})")
+        if not gap <= SMALL_TRAIN_LOSS_RTOL:
+            raise SystemExit(f"{what}: the card's first step differs from the CPU's")
+        out[f"{what} first loss"] = {"card": card_loss, "cpu": cpu, "rel_gap": gap}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    clips = spelling_clips(SPELLING_CLIPS)
+    data = tsp.SpellingDataset(clips, (np.arange(SPELLING_CLIPS) % 36).astype(np.int32),
+                               [f"clip{i}" for i in range(SPELLING_CLIPS)])
+    sp_init = sp.init_params(torch.Generator().manual_seed(4), "cpu")
+    first_step("spelling", lambda d: tsp.train(
+        tsp.SpellingDataset(clips[:32], data.labels[:32], data.names[:32]), epochs=1,
+        init_params=copy.deepcopy(sp_init).to(d)).losses[0])
+    res, s = timed(lambda: tsp.train(data, init_params=copy.deepcopy(sp_init).to(dev)))
+    out["spelling"] = {"steps": len(res.losses), "first": res.losses[0], "last": res.losses[-1],
+                       "accuracy": res.train_accuracy, "seconds": s}
+    log(f"  spelling train: {len(res.losses)} steps, loss {res.losses[0]:.4f} -> "
+        f"{res.losses[-1]:.4f}, train accuracy {res.train_accuracy:.3f}, {s:.2f} s on {card}")
+
+    waves = [synthetic_voice(30.0, 120.0, 1.0, 100), synthetic_voice(30.0, 230.0, 1.8, 101)]
+    crops = [tdz.voiced_crops(w) for w in waves]
+    seg_init = dm.init_segmentation_params(torch.Generator().manual_seed(5), dim=64, depth=1,
+                                           device="cpu")
+    emb_init = dm.init_embedding_params(torch.Generator().manual_seed(6), dim=64, device="cpu")
+    first_step("segmentation", lambda d: tdz.train_segmentation(
+        None, crops, steps=1, init_params=copy.deepcopy(seg_init).to(d))["final_loss"])
+    first_step("embedding", lambda d: tdz.train_embedding(
+        None, crops, steps=1, init_params=copy.deepcopy(emb_init).to(d))["final_loss"])
+    seg, seg_s = timed(lambda: tdz.train_segmentation(
+        None, crops, init_params=copy.deepcopy(seg_init).to(dev)))
+    emb, emb_s = timed(lambda: tdz.train_embedding(
+        None, crops, init_params=copy.deepcopy(emb_init).to(dev)))
+    xs, ws, ys = emb["examples"]
+    with torch.inference_mode():
+        trained = dm.embedding_forward(emb["params"], torch.from_numpy(xs).to(dev),
+                                       torch.from_numpy(ws).to(dev)).cpu().numpy()
+    plda, plda_s = timed(lambda: tdz.fit_plda(trained, ys))
+    out.update({"segmentation": {"final_loss": seg["final_loss"], "seconds": seg_s},
+                "embedding": {"final_loss": emb["final_loss"], "seconds": emb_s,
+                              "examples": int(len(ys))},
+                "plda": {"seconds": plda_s, "phi_top": float(plda.phi_between[0])}})
+    log(f"  train_segmentation (dim 64, 120 steps): final loss {seg['final_loss']:.4f}, "
+        f"{seg_s:.2f} s; train_embedding (dim 64, 120 steps, {len(ys)} examples): final loss "
+        f"{emb['final_loss']:.4f}, {emb_s:.2f} s; fit_plda {plda_s:.3f} s, top phi "
+        f"{float(plda.phi_between[0]):.3f}; on {card}")
+    if not all(np.isfinite([seg["final_loss"], emb["final_loss"], res.losses[-1]])):
+        raise SystemExit("a trainer's loss is not finite")
+    return out
+
+
 def gather_entry(name: str, replaces: str, launches: int, max_err: float, t: dict,
                  extra: dict | None = None) -> dict:
     return {"name": name, "route": "cuda", "source": "moonshine_tpu_torch/csrc/beam_gather.cu",
@@ -3766,6 +4343,42 @@ def main() -> int:
         for path in ("mic", "cli transcribe", "latency"):
             if not edge_launches[path]["encoder_attention_packed"]:
                 raise SystemExit(f"K1 did not launch on the {path} path")
+        # Training and weight tensor parallelism.  No kernel of the
+        # repository has a backward, so the trainers encode with the
+        # split-head attention and launch none; the finetuned weights'
+        # Transcriber runs K1, and the weight-TP path runs K1 in its encode
+        # and K3 and K4 in its beam decodes, on each rank's heads (counted
+        # over the mesh's runs only).
+        t_train = time.perf_counter()
+        log("[train step] Tiny at full width, B=8 x 10 s, S=40: one AdamW step card against "
+            "cpu, then 50 steps on cuda")
+        reset_launches(ea, bg)
+        train_step = phase_train_step(ea, card)
+        train_launches = {"train step": kernel_launches(ea, bg)}
+        log("[finetune and checkpoint] finetune, safetensors and train-state round trips, "
+            "Transcriber.with_params on cuda")
+        reset_launches(ea, bg)
+        finetune_ckpt = phase_finetune_and_checkpoint(ea, tmp, card)
+        train_launches["finetune and checkpoint"] = kernel_launches(ea, bg)
+        log("[weight TP] shard_params on the NCCL 1x1 mesh: the train step and evaluate(mesh=)")
+        reset_launches(ea, bg)
+        weight_tp = phase_weight_tp(ea, bg, tmp, card)
+        train_launches["weight TP"] = weight_tp["launches"]
+        log("[streaming train] tiny_streaming at full width, 4 clips x 4 s: card against cpu, "
+            "then 20 batched steps")
+        reset_launches(ea, bg)
+        streaming_train = phase_streaming_train(card)
+        train_launches["streaming train"] = kernel_launches(ea, bg)
+        log("[spelling and diarization train] the JAX defaults on cuda, first steps against cpu")
+        reset_launches(ea, bg)
+        small_train = phase_small_trainers(card)
+        train_launches["spelling and diarization train"] = kernel_launches(ea, bg)
+        train_s = time.perf_counter() - t_train
+        log(f"  kernel launches: {train_launches}; the five training phases took "
+            f"{train_s:.1f} s on {card}")
+        for path in ("train step", "streaming train", "spelling and diarization train"):
+            if any(train_launches[path].values()):
+                raise SystemExit(f"the {path} path launched a kernel with no backward")
 
     k3, k4 = gather_times["K3 int8"], gather_times["K4"]
     k3_bf16 = gather_times["K3 bf16"]
@@ -3794,7 +4407,7 @@ def main() -> int:
         return {path: counts[kernel]
                 for path, counts in {**serving_launches, **speaker_launches,
                                      **voice_launches, **item12_launches,
-                                     **edge_launches}.items()}
+                                     **edge_launches, **train_launches}.items()}
 
     k1_by_path.update(on_counted_paths("encoder_attention_packed"))
     kernels = [{
@@ -3855,7 +4468,10 @@ def main() -> int:
               "native_host": native_host, "mic": mic, "server": server,
               "native_client": native_client, "cli_and_download": cli_download,
               "latency_and_fleurs": latency_fleurs, "edge_launches": edge_launches,
-              "edges_s": edges_s,
+              "edges_s": edges_s, "train_step": train_step,
+              "finetune_and_checkpoint": finetune_ckpt, "weight_tp": weight_tp,
+              "streaming_train": streaming_train, "small_trainers": small_train,
+              "train_launches": train_launches, "train_s": train_s,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -176,7 +176,8 @@ class Transcriber:
         def embeddings(batch: np.ndarray, weights: np.ndarray) -> np.ndarray:
             audio = torch.from_numpy(batch).to(self.device)
             w = torch.from_numpy(weights).to(self.device)
-            return dm.embedding_forward(emb, audio, w).cpu().numpy()
+            with torch.inference_mode():
+                return dm.embedding_forward(emb, audio, w).cpu().numpy()
 
         return SpeakerDiarizer(activities, embeddings)
 

@@ -5,10 +5,11 @@ reference's eval-librispeech.py: corpus WER with the Whisper normalizer
 and VAD disabled, reference: scripts/eval-librispeech.py:87-155).
 Utterances are bucketed by encoder frame count, padded, batched, and
 decoded greedily or with beam search on the device that holds the model.
-The JAX package's ``mesh=`` is not ported yet (ROADMAP.md queue 1, item
-14.2): it shards the parameters (``shard_params``), which is weight tensor
-parallelism, and the port's parallel layer (``parallel/``) splits only
-the batch and the encoder attention's heads.
+With ``mesh=`` the weights are split over the mesh's ``model`` axis
+(``parallel.sharding.shard_params``, Megatron tensor parallelism) and every
+rank decodes the whole batch: its heads of every attention and KV cache,
+the logits gathered before each argmax or top-k, as JAX's ``evaluate``
+does with ``shard_params``.
 
 Dataset layout: standard LibriSpeech extraction
 (``<root>/<split>/<spk>/<chap>/<spk>-<chap>-<utt>.flac`` + ``*.trans.txt``)
@@ -115,13 +116,20 @@ def evaluate(
     batch_size: int = 16,
     limit: int | None = None,
     beam_size: int = 1,
+    mesh=None,
     return_texts: bool = False,
 ) -> dict:
     """Batched offline decode -> corpus WER + audio-seconds/s, on the
-    device that holds ``model``."""
+    device that holds ``model``; with a (data, model) ``mesh``, on this
+    rank's share of the weights (``shard_params``)."""
     from ..decoding.beam import beam_decode
     from ..decoding.greedy import greedy_decode
     from ..models import moonshine as mm
+
+    if mesh is not None:
+        from ..parallel.sharding import shard_params
+
+        model = shard_params(mesh, model)
 
     device = next(model.parameters()).device
     utts = []

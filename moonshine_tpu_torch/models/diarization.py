@@ -16,7 +16,9 @@ Counterpart of the JAX package's ``models/diarization.py``:
 
 Convolutions run channels-first (``[B, C, T]``) where JAX is ``NWC``; the
 transformer and the pooling run ``[B, T, C]`` as JAX does.  The clustering
-lives in ``pipeline/diarization.py``.
+lives in ``pipeline/diarization.py``.  The forwards are differentiable
+(``train/diarization.py``); the inference callers hold
+``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -119,7 +121,6 @@ def _self_attention(attn: Attention, x: torch.Tensor, heads: int) -> torch.Tenso
     return dense(attn.o, o.reshape(b, t, d))
 
 
-@torch.inference_mode()
 def segmentation_forward(model: Segmentation, audio: torch.Tensor) -> torch.Tensor:
     """[B, window_samples] -> [B, T, n_classes] powerset logits (T=25fps)."""
     mel = log_mel(audio, n_fft=400, hop=MEL_HOP, n_mels=N_MELS, center=True)
@@ -132,6 +133,7 @@ def segmentation_forward(model: Segmentation, audio: torch.Tensor) -> torch.Tens
     return dense(model.head, layer_norm(model.norm, h))
 
 
+@torch.inference_mode()
 def segmentation_activations(model: Segmentation, audio: torch.Tensor) -> torch.Tensor:
     """[B, N] -> [B, T, n_speakers] per-speaker activity probabilities
     (the powerset softmax folded through the multilabel map)."""
@@ -162,7 +164,6 @@ def init_embedding_params(generator: torch.Generator, dim: int = 256,
     return model.to(resolve_device(device))
 
 
-@torch.inference_mode()
 def embedding_forward(model: Embedding, audio: torch.Tensor,
                       frame_weights: torch.Tensor | None = None) -> torch.Tensor:
     """[B, N] (+ optional per-mel-frame weights [B, T_mel]) -> [B, 192],

@@ -16,13 +16,31 @@ Unlike the JAX package, ``decoder_apply`` writes the new self-attention
 keys and values into the cache tensors in place (PyTorch tensors are
 mutable; a copy of the whole cache per token would double the decode's
 memory traffic), and ``DecoderCache.cur_len`` is a host integer.
+
+Tensor parallelism (``parallel.sharding.shard_params``) keeps each rank's
+blocks of the weights and sets ``tp`` on the attention, MLP and decoder
+holders; the layer functions then compute the Megatron split: q, k, v and
+fc1 on this rank's output features (its heads, so each rank's KV caches
+hold only its heads), o and fc2 on its input features with an all-reduce
+over ``model`` before the bias, the embedding's lookup on its vocabulary
+block with an all-reduce, and the tied logits on its block with an
+all-gather (``parallel/tensor_parallel.py``).  Head counts are read from
+the weights, so the same code runs a whole model and a rank's share.
+
+Training: the encoder's pair-swapped rotary projections are copies of q
+and k (``prepare_rotary_params``).  Where q's weight requires grad they are
+derived from q and k in the forward, as the JAX package does for a tree
+without them, so the gradient reaches q and k; ``prepare_rotary_params(...,
+refresh=True)`` brings the copies up to date after an update.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import MoonshineArchConfig
@@ -36,6 +54,7 @@ from ..ops.rotary import (
     rotary_tables,
     swap_dense_params,
 )
+from ..parallel.tensor_parallel import copy_to_model, gather_from_model, reduce_from_model
 from ..quant import weight_of
 from .layers import (
     ACTIVATIONS,
@@ -69,12 +88,14 @@ class Attention(nn.Module):
         self.q, self.k, self.v, self.o = q, k, v, o
         self.q_swapped: Dense | None = None
         self.k_swapped: Dense | None = None
+        self.tp = None  # parallel.tensor_parallel.ModelParallel once sharded
 
 
 class Mlp(nn.Module):
     def __init__(self, fc1: Dense, fc2: Dense):
         super().__init__()
         self.fc1, self.fc2 = fc1, fc2
+        self.tp = None
 
 
 class EncoderLayer(nn.Module):
@@ -110,6 +131,7 @@ class Decoder(nn.Module):
         self.embed = nn.Parameter(embed, requires_grad=False)  # [V, D], tied output
         self.layers = nn.ModuleList(layers)
         self.norm = norm
+        self.tp = None
 
 
 class Moonshine(nn.Module):
@@ -171,19 +193,44 @@ def init_params(cfg: MoonshineArchConfig, generator: torch.Generator,
     return prepare_rotary_params(model, cfg).to(resolve_device(device))
 
 
-def prepare_rotary_params(model: Moonshine, cfg: MoonshineArchConfig) -> Moonshine:
+def _out_features(p: Dense) -> int:
+    return (p.w_q if p.quantized else p.weight).shape[0]
+
+
+def _heads(p: Dense, head_dim: int) -> int:
+    """The heads a q/k/v projection holds: all of them, or a rank's share."""
+    n = _out_features(p)
+    if n % head_dim:
+        raise ValueError(f"a projection of {n} features does not hold whole heads of "
+                         f"{head_dim}: the model axis must divide the heads")
+    return n // head_dim
+
+
+def _swap_perms(cfg: MoonshineArchConfig, a: Attention):
+    half = cfg.rotary_dim // 2
+    return (pair_swap_perm(cfg.head_dim, half, _heads(a.q, cfg.head_dim)),
+            pair_swap_perm(cfg.head_dim, half, _heads(a.k, cfg.head_dim)))
+
+
+def prepare_rotary_params(model: Moonshine, cfg: MoonshineArchConfig,
+                          refresh: bool = False) -> Moonshine:
     """Give every encoder attention its pair-swapped q/k projections, once
     at load time (exact: a permutation of output channels), as the encoder
-    requires.  Idempotent; updates ``model`` in place and returns it."""
-    half = cfg.rotary_dim // 2
-    q_perm = pair_swap_perm(cfg.head_dim, half, cfg.encoder_heads)
-    k_perm = pair_swap_perm(cfg.head_dim, half, cfg.encoder_kv_heads)
+    requires.  Idempotent; updates ``model`` in place and returns it.  With
+    ``refresh`` the existing copies are rewritten from q and k (after a
+    training step has changed them)."""
     for layer in model.encoder.layers:
         a = layer.attn
-        if a.q_swapped is None:
-            a.q_swapped = swap_dense_params(a.q, q_perm)
-        if a.k_swapped is None:
-            a.k_swapped = swap_dense_params(a.k, k_perm)
+        q_perm, k_perm = _swap_perms(cfg, a)
+        for name, src, perm in (("q_swapped", a.q, q_perm), ("k_swapped", a.k, k_perm)):
+            old = getattr(a, name)
+            if old is None:
+                setattr(a, name, swap_dense_params(src, perm))
+            elif refresh:
+                new = swap_dense_params(src, perm)
+                with torch.no_grad():
+                    for t_old, t_new in zip(old.parameters(), new.parameters()):
+                        t_old.copy_(t_new)
     return model
 
 
@@ -302,19 +349,43 @@ def lane_aligned_samples(cfg: MoonshineArchConfig, n: int, align: int = 128) -> 
     return n
 
 
+def _dense_row(p: Dense, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel dense layer: this rank's input features, the partial
+    products summed over ``model``, then the (replicated) bias; ``dense``
+    itself when the model is not split."""
+    if tp is None:
+        return dense(p, x)
+    y = reduce_from_model(F.linear(x, p.weight.to(x.dtype)), tp)
+    return y if p.bias is None else y + p.bias.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _perm_tensor(perm: tuple, device: torch.device) -> torch.Tensor:
+    """A permutation on ``device``, copied there once."""
+    return torch.tensor(perm, dtype=torch.long, device=device)
+
+
 def _encoder_qkv(cfg: MoonshineArchConfig, h: torch.Tensor, lp: EncoderLayer,
                  cos, sin) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """An encoder layer's attention inputs from its input ``h``: q and k
-    with rotary, and v, each [B, T, heads * hd] (heads not split)."""
-    x = layer_norm(lp.ln1, h, cfg.layer_norm_eps)
+    with rotary, and v, each [B, T, heads * hd] (heads not split; a rank's
+    heads when the model is split)."""
     a = lp.attn
+    x = copy_to_model(layer_norm(lp.ln1, h, cfg.layer_norm_eps), a.tp)
     hd = cfg.head_dim
-    # The pair-swapped projections (prepare_rotary_params) give the rotary's
-    # swapped operand from the same GEMM shape, with no gather per call.
-    q_full = apply_rotary_fullwidth(dense(a.q, x), dense(a.q_swapped, x), cos, sin, hd,
-                                    cfg.encoder_heads)
-    k_full = apply_rotary_fullwidth(dense(a.k, x), dense(a.k_swapped, x), cos, sin, hd,
-                                    cfg.encoder_kv_heads)
+    qf, kf = dense(a.q, x), dense(a.k, x)
+    if a.q.weight is not None and a.q.weight.requires_grad and torch.is_grad_enabled():
+        # Training: the swapped operand as a permutation of q's and k's own
+        # outputs, so the gradient reaches q and k (the stored copies are
+        # leaves of their own).
+        q_perm, k_perm = (_perm_tensor(tuple(perm), x.device) for perm in _swap_perms(cfg, a))
+        qsf, ksf = qf.index_select(-1, q_perm), kf.index_select(-1, k_perm)
+    else:
+        # The pair-swapped projections (prepare_rotary_params) give the
+        # rotary's swapped operand from the same GEMM shape, with no gather.
+        qsf, ksf = dense(a.q_swapped, x), dense(a.k_swapped, x)
+    q_full = apply_rotary_fullwidth(qf, qsf, cos, sin, hd, _heads(a.q, hd))
+    k_full = apply_rotary_fullwidth(kf, ksf, cos, sin, hd, _heads(a.k, hd))
     return q_full, k_full, dense(a.v, x)
 
 
@@ -323,25 +394,24 @@ def _encoder_layer_apply(cfg: MoonshineArchConfig, h: torch.Tensor, lp: EncoderL
     eps = cfg.layer_norm_eps
     a = lp.attn
     q_full, k_full, v_full = _encoder_qkv(cfg, h, lp, cos, sin)
+    heads, kv_heads = _heads(a.q, cfg.head_dim), _heads(a.k, cfg.head_dim)
     if attn_impl == "auto":
         # q/v stay [B, T, D]; K goes dim-major once, as the kernel reads it.
         o_full = encoder_attention_packed(
-            q_full, k_full.transpose(1, 2).contiguous(), v_full, frame_mask,
-            heads=cfg.encoder_heads)
+            q_full, k_full.transpose(1, 2).contiguous(), v_full, frame_mask, heads=heads)
     elif attn_impl == "pallas_shmap":
         o_full = encoder_attention_packed_sharded(
             q_full, k_full.transpose(1, 2).contiguous(), v_full, frame_mask,
             cfg.encoder_heads, mesh)
     else:
         mask = None if frame_mask is None else frame_mask[:, None, None, :]
-        o = _attention(_split_heads(q_full, cfg.encoder_heads),
-                       _split_heads(k_full, cfg.encoder_kv_heads),
-                       _split_heads(v_full, cfg.encoder_kv_heads), mask)
+        o = _attention(_split_heads(q_full, heads), _split_heads(k_full, kv_heads),
+                       _split_heads(v_full, kv_heads), mask)
         o_full = o.reshape(o.shape[0], o.shape[1], -1)
-    h = h + dense(a.o, o_full)
-    x = layer_norm(lp.ln2, h, eps)
+    h = h + _dense_row(a.o, o_full, a.tp)
+    x = copy_to_model(layer_norm(lp.ln2, h, eps), lp.mlp.tp)
     act = ACTIVATIONS[cfg.encoder_hidden_act]
-    return h + dense(lp.mlp.fc2, act(dense(lp.mlp.fc1, x)))
+    return h + _dense_row(lp.mlp.fc2, act(dense(lp.mlp.fc1, x)), lp.mlp.tp)
 
 
 def _check_attn_impl(cfg: MoonshineArchConfig, attn_impl: str, mesh) -> None:
@@ -372,6 +442,9 @@ def encoder_apply(
     """Rotary transformer encoder -> [B, T, D] hidden states.  With a mesh,
     ``features`` are this rank's rows (parallel.sharding.shard_batch)."""
     _check_attn_impl(cfg, attn_impl, mesh)
+    if attn_impl == "pallas_shmap" and p.layers and p.layers[0].attn.tp is not None:
+        raise ValueError("attn_impl='pallas_shmap' splits the heads of replicated weights; "
+                         "a model split by shard_params already holds only its heads")
     t = features.shape[1]
     cos, sin = rotary_tables(torch.arange(t, device=features.device), cfg.rotary_dim,
                              cfg.rope_theta)
@@ -432,7 +505,8 @@ def init_cache(
     dtype: torch.dtype = torch.float32,
     kv_int8: bool = False,
 ) -> DecoderCache:
-    shape = (cfg.decoder_layers, batch, cfg.decoder_kv_heads, cfg.head_dim, max_len)
+    # The cross caches' heads: all of them, or a split model's share.
+    shape = (cfg.decoder_layers, batch, k_cross.shape[2], cfg.head_dim, max_len)
     dev = k_cross.device
     if not kv_int8:
         return DecoderCache(
@@ -458,13 +532,14 @@ def init_cache(
 def compute_cross_kv(p: Decoder, cfg: MoonshineArchConfig,
                      memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V of every layer from encoder memory, dim-major
-    [L, B, H, hd, T]."""
-    h = cfg.decoder_kv_heads
+    [L, B, H, hd, T] (H: a split model's heads)."""
     hd = cfg.hidden_size // cfg.decoder_heads
+    memory = copy_to_model(memory, p.tp)
     ks, vs = [], []
     for lp in p.layers:
         a = lp.cross_attn
         for proj, out in ((a.k, ks), (a.v, vs)):
+            h = _heads(proj, hd)
             # weight_of: an exec-quantized layer's weight, dequantized in the
             # memory's dtype, as the JAX package folds it into this product.
             w = weight_of(proj, memory.dtype).reshape(h, hd, cfg.hidden_size)
@@ -494,16 +569,29 @@ def _self_mask(cache: DecoderCache, s: int, token_mask: torch.Tensor | None,
     return mask
 
 
+def _write_cols(buf: torch.Tensor, new: torch.Tensor, start: int) -> torch.Tensor:
+    """``new`` written into the last axis of ``buf`` at ``start``: in place,
+    or, where autograd records ``new``, into a copy (the layers' caches are
+    views of one tensor, so an in-place write would change what an earlier
+    layer saved for its backward)."""
+    if torch.is_grad_enabled() and new.requires_grad:
+        return torch.slice_scatter(buf, new, dim=-1, start=start, end=start + new.shape[-1])
+    buf[..., start:start + new.shape[-1]] = new
+    return buf
+
+
 def _decoder_layer_apply(cfg, h, lp: DecoderLayer, layer: int, cache: DecoderCache,
                          cos, sin, self_mask):
     """Self-attention of one decoder layer over s new tokens; writes their
-    keys and values into the layer's cache at [cur_len, cur_len + s)."""
+    keys and values into the layer's cache at [cur_len, cur_len + s).
+    Returns (h, the layer's self K, its self V)."""
     b, s, _ = h.shape
-    x = layer_norm(lp.ln1, h, cfg.layer_norm_eps)
     a = lp.self_attn
-    q = apply_rotary(_split_heads(dense(a.q, x), cfg.decoder_heads), cos, sin)
-    k_new = apply_rotary(_split_heads(dense(a.k, x), cfg.decoder_kv_heads), cos, sin)
-    v_new = _split_heads(dense(a.v, x), cfg.decoder_kv_heads)
+    x = copy_to_model(layer_norm(lp.ln1, h, cfg.layer_norm_eps), a.tp)
+    hd = cfg.head_dim
+    q = apply_rotary(_split_heads(dense(a.q, x), _heads(a.q, hd)), cos, sin)
+    k_new = apply_rotary(_split_heads(dense(a.k, x), _heads(a.k, hd)), cos, sin)
+    v_new = _split_heads(dense(a.v, x), _heads(a.v, hd))
     k_new_dm = k_new.permute(0, 2, 3, 1)  # [B, H, hd, s]
     v_new_dm = v_new.permute(0, 2, 3, 1)
     cols = slice(cache.cur_len, cache.cur_len + s)
@@ -518,18 +606,18 @@ def _decoder_layer_apply(cfg, h, lp: DecoderLayer, layer: int, cache: DecoderCac
         o = attention_dm_q8(q, k_l, cache.k_self_scale[layer], v_l,
                             cache.v_self_scale[layer], self_mask)
     else:
-        k_l[..., cols] = k_new_dm.to(k_l.dtype)
-        v_l[..., cols] = v_new_dm.to(v_l.dtype)
+        k_l = _write_cols(k_l, k_new_dm.to(k_l.dtype), cache.cur_len)
+        v_l = _write_cols(v_l, v_new_dm.to(v_l.dtype), cache.cur_len)
         o = _attention_dm(q, k_l.to(q.dtype), v_l.to(q.dtype), self_mask)
-    return h + dense(a.o, o.reshape(b, s, -1))
+    return h + _dense_row(a.o, o.reshape(b, s, -1), a.tp), k_l, v_l
 
 
 def _decoder_cross_mlp_apply(cfg, h, lp: DecoderLayer, layer: int, cache: DecoderCache,
                              cross_mask, collect_weights: bool, beam_k: int):
     b, s, _ = h.shape
-    heads = cfg.decoder_heads
-    x = layer_norm(lp.ln2, h, cfg.layer_norm_eps)
     a = lp.cross_attn
+    heads = _heads(a.q, cfg.head_dim)
+    x = copy_to_model(layer_norm(lp.ln2, h, cfg.layer_norm_eps), a.tp)
     q = _split_heads(dense(a.q, x), heads)
     if beam_k > 1:
         # The K beams of one utterance share its memory: the cross caches
@@ -548,12 +636,26 @@ def _decoder_cross_mlp_apply(cfg, h, lp: DecoderLayer, layer: int, cache: Decode
         o, w = _attention_dm(q, kc.to(q.dtype), vc.to(q.dtype), cross_mask, with_weights=True)
     else:
         o = _attention_dm(q, kc.to(q.dtype), vc.to(q.dtype), cross_mask)
-    h = h + dense(a.o, o.reshape(b, s, -1))
-    # SwiGLU MLP: fc1 -> (h, gate) -> act(gate) * h -> fc2
-    x = layer_norm(lp.ln3, h, cfg.layer_norm_eps)
+    h = h + _dense_row(a.o, o.reshape(b, s, -1), a.tp)
+    # SwiGLU MLP: fc1 -> (h, gate) -> act(gate) * h -> fc2.  A split fc1
+    # holds the same block of both halves (parallel.sharding.shard_params).
+    x = copy_to_model(layer_norm(lp.ln3, h, cfg.layer_norm_eps), lp.mlp.tp)
     hh, gate = torch.chunk(dense(lp.mlp.fc1, x), 2, dim=-1)
     act = ACTIVATIONS[cfg.decoder_hidden_act]
-    return h + dense(lp.mlp.fc2, act(gate) * hh), w
+    return h + _dense_row(lp.mlp.fc2, act(gate) * hh, lp.mlp.tp), w
+
+
+def _embed(p: Decoder, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings; a split model looks up its vocabulary block,
+    zeroes the rows of ids outside it and sums over ``model`` (exact: one
+    rank holds each id)."""
+    if p.tp is None:
+        return p.embed[tokens]
+    rows = p.embed.shape[0]
+    local = tokens - p.tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    h = p.embed[local.clamp(0, rows - 1)]
+    return reduce_from_model(torch.where(inside[..., None], h, torch.zeros_like(h)), p.tp)
 
 
 def decoder_apply(
@@ -569,7 +671,8 @@ def decoder_apply(
 
     Returns (logits [B, s, V] float32, the cache with ``cur_len`` advanced
     by s, cross-attention weights [L, B, H, s, T] or None).  The self caches
-    of ``cache`` are written in place.
+    of ``cache`` are written in place, except where autograd records the
+    new keys: then the returned cache holds new self caches.
     """
     b, s = tokens.shape
     max_len = cache.k_self.shape[4]
@@ -579,21 +682,26 @@ def decoder_apply(
     if beam_k > 1 and collect_cross_attention:
         raise ValueError("collect_cross_attention is not supported with beam_k > 1")
     dev = tokens.device
-    h = p.embed[tokens]  # compute dtype follows the parameter dtype
+    h = _embed(p, tokens)  # compute dtype follows the parameter dtype
     positions = cache.cur_len + torch.arange(s, device=dev)
     cos, sin = rotary_tables(positions, cfg.rotary_dim, cfg.rope_theta)
     self_mask = _self_mask(cache, s, token_mask, dev)
     cross_mask = cache.memory_mask[:, None, None, :]  # [B, 1, 1, T]
-    weights = []
+    weights, k_self, v_self = [], [], []
     for layer, lp in enumerate(p.layers):
-        h = _decoder_layer_apply(cfg, h, lp, layer, cache, cos, sin, self_mask)
+        h, k_l, v_l = _decoder_layer_apply(cfg, h, lp, layer, cache, cos, sin, self_mask)
+        k_self.append(k_l)
+        v_self.append(v_l)
         h, w = _decoder_cross_mlp_apply(cfg, h, lp, layer, cache, cross_mask,
                                         collect_cross_attention, beam_k)
         weights.append(w)
+    if k_self and k_self[0].requires_grad:  # written out of place (_write_cols)
+        cache = cache._replace(k_self=torch.stack(k_self), v_self=torch.stack(v_self))
     h = layer_norm(p.norm, h, cfg.layer_norm_eps)
     # Tied output projection: operands in the compute dtype, float32 result
-    # (bf16 products are exact in float32).
-    logits = h.float() @ p.embed.float().t()
+    # (bf16 products are exact in float32); a split model's vocabulary
+    # blocks are gathered before anyone takes a softmax or an argmax.
+    logits = gather_from_model(copy_to_model(h, p.tp).float() @ p.embed.float().t(), p.tp)
     cross_w = torch.stack(weights) if collect_cross_attention else None
     return logits, cache._replace(cur_len=cache.cur_len + s), cross_w
 

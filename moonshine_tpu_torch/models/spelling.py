@@ -73,9 +73,9 @@ def init_params(generator: torch.Generator, device=None) -> SpellingCNN:
     return model.to(resolve_device(device))
 
 
-@torch.inference_mode()
 def forward(model: SpellingCNN, audio: torch.Tensor) -> torch.Tensor:
-    """[B, 16000] waveform -> [B, 36] logits."""
+    """[B, 16000] waveform -> [B, 36] logits (differentiable, for
+    ``train/spelling.py``; the inference callers hold inference mode)."""
     mel = log_mel(audio, n_fft=_N_FFT, hop=_HOP, n_mels=N_MELS, center=True)
     mel = mel[:, :TARGET_FRAMES, :]
     # Per-clip normalisation; jnp.std's default is the population std.
@@ -106,6 +106,7 @@ def _top1(logits: torch.Tensor, classes: list[str]) -> tuple[str, float]:
     return classes[top], float(probs[top])
 
 
+@torch.inference_mode()
 def predict(model: SpellingCNN, audio: np.ndarray) -> SpellingPrediction:
     """One clip (any length; center-cropped or padded to 1 s) -> top-1, on
     the model's device."""

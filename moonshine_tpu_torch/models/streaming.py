@@ -26,6 +26,13 @@ update reads the device to know where it is.  Reads keep the clamping of
 JAX's ``dynamic_slice`` (a window that would run past its buffer starts
 earlier); a write that JAX's ``dynamic_update_slice`` would clamp raises
 here.  The greedy loops are Python loops with one host read per step.
+
+The stage functions (``frontend_step``, ``encode_step``, ``decode_tokens``)
+are differentiable, for ``train/streaming_step.py``: where autograd
+records the rows they write, they write them into copies of the state's
+buffers (``_write_rows``), so that no tensor saved for the backward is
+overwritten later.  The host loops (``encode``, ``decode_full``,
+``decode_full_fused``) run under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -224,6 +231,16 @@ def _check_write(what: str, start: int, size: int, dim: int) -> None:
         raise ValueError(f"{what} holds {dim} rows; cannot write {size} at row {start}")
 
 
+def _write_rows(buf: torch.Tensor, rows: torch.Tensor, start: int, dim: int = 0) -> torch.Tensor:
+    """``rows`` written into ``buf`` along ``dim`` at ``start``: in place, or,
+    where autograd records ``rows``, into a copy."""
+    rows = rows.to(buf.dtype)
+    if torch.is_grad_enabled() and rows.requires_grad:
+        return torch.slice_scatter(buf, rows, dim=dim, start=start, end=start + rows.shape[dim])
+    buf.narrow(dim, start, rows.shape[dim]).copy_(rows)
+    return buf
+
+
 # =========================================================================
 # Frontend
 # =========================================================================
@@ -233,7 +250,6 @@ def _causal_conv(p: Conv1d, x_with_carry: torch.Tensor) -> torch.Tensor:
     return conv1d(p, x_with_carry[None], stride=1)[0]
 
 
-@torch.inference_mode()
 def frontend_step(model: StreamingMoonshine, cfg: StreamingConfig, chunk: torch.Tensor,
                   state: StreamingState) -> StreamingState:
     """Process ``n_frames * frame_len`` new samples (``chunk``, on the
@@ -250,8 +266,8 @@ def frontend_step(model: StreamingMoonshine, cfg: StreamingConfig, chunk: torch.
     h2_in = torch.cat([state.conv2_carry, h1])
     h2 = ACTIVATIONS["gelu"](_causal_conv(p.conv2, h2_in))  # [n, c2]
     feats = layer_norm(p.norm, h2)
-    state.feats[state.feat_count:state.feat_count + n] = feats.to(state.feats.dtype)
     return state._replace(
+        feats=_write_rows(state.feats, feats, state.feat_count),
         sample_ctx=x[-SAMPLE_CTX:],
         conv1_carry=h1_in[-CONV_CARRY:],
         conv2_carry=h2_in[-CONV_CARRY:],
@@ -288,7 +304,6 @@ def _sinusoid(pos: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
-@torch.inference_mode()
 def encode_step(model: StreamingMoonshine, cfg: StreamingConfig, state: StreamingState,
                 n_new: int) -> StreamingState:
     """Re-encode the sliding window and append ``n_new`` (0 < n_new <=
@@ -323,18 +338,21 @@ def encode_step(model: StreamingMoonshine, cfg: StreamingConfig, state: Streamin
 
     m0 = state.mem_len
     _check_write("memory", m0, ENC_STEP, state.memory.shape[0])
-    state.memory[m0:m0 + ENC_STEP] = mem_new.to(state.memory.dtype)
     # Incremental cross K/V of the new memory rows (a frame's K/V depends
-    # on that frame only).
-    for layer, lp in enumerate(model.decoder.layers):
-        c = lp.cross_attn
-        state.k_cross[layer, m0:m0 + ENC_STEP] = _split_heads(
-            dense(c.k, mem_new)[None], cfg.nheads)[0].to(state.k_cross.dtype)
-        state.v_cross[layer, m0:m0 + ENC_STEP] = _split_heads(
-            dense(c.v, mem_new)[None], cfg.nheads)[0].to(state.v_cross.dtype)
-    return state._replace(enc_emitted=state.enc_emitted + n_new, mem_len=m0 + n_new)
+    # on that frame only), every layer's written at once.
+    layers = model.decoder.layers
+    k_new = torch.stack([_split_heads(dense(lp.cross_attn.k, mem_new)[None], cfg.nheads)[0]
+                         for lp in layers])
+    v_new = torch.stack([_split_heads(dense(lp.cross_attn.v, mem_new)[None], cfg.nheads)[0]
+                         for lp in layers])
+    return state._replace(
+        memory=_write_rows(state.memory, mem_new, m0),
+        k_cross=_write_rows(state.k_cross, k_new, m0, dim=1),
+        v_cross=_write_rows(state.v_cross, v_new, m0, dim=1),
+        enc_emitted=state.enc_emitted + n_new, mem_len=m0 + n_new)
 
 
+@torch.inference_mode()
 def encode(model: StreamingMoonshine, cfg: StreamingConfig, state: StreamingState,
            is_final: bool) -> tuple[StreamingState, int]:
     """Emit every newly stable frame (a host loop over ``encode_step``):
@@ -370,7 +388,6 @@ def mem_bucket_for(mem_len: int) -> int:
     return MEM_CAP
 
 
-@torch.inference_mode()
 def decode_tokens(
     model: StreamingMoonshine,
     cfg: StreamingConfig,
@@ -382,7 +399,8 @@ def decode_tokens(
     """Run the decoder over ``s`` tokens from the cache position, writing
     their self K/V in place.  Returns (logits [s, vocab] float32, the state
     with ``cache_len`` advanced by s, cross-attention weights
-    [L, H, s, mem_bucket] float32 or None)."""
+    [L, H, s, mem_bucket] float32 or None).  Where autograd records the new
+    keys, the returned state holds new self caches instead."""
     dec = model.decoder
     s = tokens.shape[0]
     dev = tokens.device
@@ -394,7 +412,7 @@ def decode_tokens(
     key_pos = torch.arange(cfg.max_seq_len, device=dev)
     self_mask = key_pos[None, None, None, :] <= positions[None, None, :, None]
     cross_mask = (torch.arange(mem_bucket, device=dev) < state.mem_len)[None, None, None, :]
-    weights = []
+    weights, k_self, v_self = [], [], []
     for layer, lp in enumerate(dec.layers):
         # Self-attention
         x = layer_norm(lp.ln1, h)
@@ -402,9 +420,10 @@ def decode_tokens(
         q = apply_rotary(_split_heads(dense(a.q, x)[None], cfg.nheads)[0], cos, sin)
         k_new = apply_rotary(_split_heads(dense(a.k, x)[None], cfg.nheads)[0], cos, sin)
         v_new = _split_heads(dense(a.v, x)[None], cfg.nheads)[0]
-        k_l, v_l = state.k_self[layer], state.v_self[layer]
-        k_l[cl:cl + s] = k_new.to(k_l.dtype)
-        v_l[cl:cl + s] = v_new.to(v_l.dtype)
+        k_l = _write_rows(state.k_self[layer], k_new, cl)
+        v_l = _write_rows(state.v_self[layer], v_new, cl)
+        k_self.append(k_l)
+        v_self.append(v_l)
         o = _attention(q[None], k_l[None].to(q.dtype), v_l[None].to(q.dtype), self_mask)[0]
         h = h + dense(a.o, o.reshape(s, -1))
         # Cross-attention over memory
@@ -426,6 +445,8 @@ def decode_tokens(
     h = layer_norm(dec.norm, h)
     logits = h.float() @ dec.embed.float().t()
     cross_w = torch.stack(weights) if collect_attention else None
+    if k_self and k_self[0].requires_grad:  # written out of place
+        state = state._replace(k_self=torch.stack(k_self), v_self=torch.stack(v_self))
     return logits, state._replace(cache_len=cl + s), cross_w
 
 
@@ -449,6 +470,7 @@ def _greedy_continue(model, cfg: StreamingConfig, first_token: torch.Tensor,
     return tokens, state
 
 
+@torch.inference_mode()
 def decode_full_fused(
     model: StreamingMoonshine,
     cfg: StreamingConfig,
@@ -493,6 +515,7 @@ def decode_full_fused(
     return tokens + more, state
 
 
+@torch.inference_mode()
 def decode_full(
     model: StreamingMoonshine,
     cfg: StreamingConfig,

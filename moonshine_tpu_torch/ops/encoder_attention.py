@@ -19,7 +19,11 @@ Per batch row and head both compute
 
 Each wrapper runs its plain version on CPU tensors and its kernel
 (``csrc/encoder_attention.cu``) on CUDA tensors.  It never falls back from
-one to the other.
+one to the other.  Neither kernel has a backward (the Pallas kernels have
+no transpose rule either), so every wrapper refuses, on both devices, an
+input that requires grad while grad mode is on: the plain version would
+train on the CPU where the kernel's output on the card would cut the
+graph.  ``attn_impl="xla"`` is the differentiable encoder attention.
 
 ``encoder_attention_sharded`` and ``encoder_attention_packed_sharded`` are
 the counterparts of the JAX ``shard_map`` wrappers: batch over the mesh's
@@ -170,6 +174,14 @@ def _check_hm(q, k, v, frame_mask) -> None:
     _check_frames(q.shape[1], q.shape[3], q.dtype)
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would have to differentiate through ``name``."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires grad. Encode with "
+            f"attn_impl=\"xla\", the differentiable attention, to train through it")
+
+
 @functools.cache
 def _kernel(name: str):
     """The C entry point ``name`` (``encoder_attention_packed`` or
@@ -217,6 +229,7 @@ def encoder_attention_packed(
     count the launch in ``encoder_attention_packed.launches``.
     """
     _check(q, kt, v, frame_mask, heads)
+    _refuse_grad("encoder_attention_packed", q, kt, v)
     if q.device.type == "cpu":
         return _encoder_attention_packed_torch(q, kt, v, frame_mask, heads)
     if q.device.type != "cuda":
@@ -243,6 +256,7 @@ def encoder_attention(
     ``encoder_attention.launches``.
     """
     _check_hm(q, k, v, frame_mask)
+    _refuse_grad("encoder_attention", q, k, v)
     if q.device.type == "cpu":
         return _encoder_attention_torch(q, k, v, frame_mask)
     if q.device.type != "cuda":
@@ -332,6 +346,7 @@ def encoder_attention_sharded(
     it) with every head; this rank computes heads block ``m`` of ``model``
     and the ``model`` group all-gathers the blocks, so the caller gets its
     rows with every head.  Raises if ``H % model != 0``."""
+    _refuse_grad("encoder_attention_sharded", q, k, v)
     coord, shape = _model_coord(mesh)
     return _gather_heads(encoder_attention_sharded_body(q, k, v, frame_mask, coord, shape), mesh)
 
@@ -343,6 +358,7 @@ def encoder_attention_packed_sharded(
     """``encoder_attention_packed`` on a (data, model) ``DeviceMesh``, as
     ``encoder_attention_sharded``: whole-head lane blocks over ``model``,
     all-gathered so the caller gets its rows [B, T, H*hd] with every head."""
+    _refuse_grad("encoder_attention_packed_sharded", q, kt, v)
     coord, shape = _model_coord(mesh)
     return _gather_heads(
         encoder_attention_packed_sharded_body(q, kt, v, frame_mask, heads, coord, shape), mesh)

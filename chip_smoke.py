@@ -86,8 +86,11 @@ the NCCL 1x1 mesh: the sharded train step and ``evaluate(mesh=)`` with
 greedy and beam 4 against the unsharded ones, K1, K3 and K4 on the rank's
 heads), ``[streaming train]`` (``tiny_streaming``, 4 clips of 4 s, against
 the CPU, then 20 steps) and ``[spelling and diarization train]`` (the JAX
-defaults on the synthetic voices, first steps against the CPU); the
-trainers launch no kernel of the repository. Every phase that
+defaults on the synthetic voices, first steps against the CPU) and ``[g2p
+and tagger train]`` (``distill("en")`` at its defaults, ``train_ja_reader``
+and ``train_tok_pos`` on synthetic corpora in the reference's formats, each
+step held against the CPU's; the trained models give the same predictions
+on the CPU); the trainers launch no kernel of the repository. Every phase that
 fails ends the run with a non-zero exit. The last two lines of standard
 output are the kernels' JSON summary and the device JSON; a fuller record
 goes to chiprun_out/chip_smoke.json. Without CUDA, or without the rest of
@@ -4123,6 +4126,308 @@ def phase_small_trainers(card: str, dev: str = "cuda") -> dict:
     return out
 
 
+# [g2p and tagger train]: the reference corpora the Japanese reader and the
+# tagger train on are not in the repository; these synthetic ones are
+# written in their formats from the in-repo tables (the CPU tests train on
+# them too).
+CORPUS_JA_LINES = 100
+CORPUS_ZH_LINES = 96
+CORPUS_TAGS = ("NOUN", "VERB", "ADJ", "ADV", "PROPN", "NUM", "PRON", "AUX")
+JA_PARTICLES = ("は", "の", "を", "に", "が", "で", "と", "も", "から", "まで")
+# Card against CPU: steps 1..G2P_HOLD_STEPS after the first (whose lr is 0
+# under the warm-up from 0) from the same weights on the same batches: each
+# loss to TRAIN_LOSS_RTOL; the last step's gradients to TRAIN_GRAD_REL of
+# each leaf's largest |g|, its parameters to the CPU optimizer (with the
+# card's moments) fed the card's gradients, as [train step] holds them.
+G2P_HOLD_STEPS = 4
+G2P_TIMED_STEPS = 50
+# Reduced step counts (defaults 1,200 and 800): the synthetic corpora are
+# small, and 300 steps, the JAX package's own test counts, keep the phase
+# near 60 s with its CPU halves; the full defaults show nothing more of the
+# port on these corpora.
+JA_READER_STEPS = 300
+TOK_POS_STEPS = 300
+JA_NEURAL_LINE = "山川の学校で数字を使用する。"
+
+
+def write_reference_corpora(root: str, seed: int = 0) -> dict:
+    """Synthetic stand-ins for the reference's ja wiki corpus (surface/UPOS
+    tokens and golden IPA words, ``tok_pos_wiki_100.txt`` and
+    ``onnx_g2p_wiki_100.txt``) and zh tagger corpus
+    (``tok_pos_wiki_filtered.txt``) under ``root`` in the reference's layout
+    (``core/moonshine-tts/tests/data/{ja,zh_hans}``).  Japanese lines join
+    kanji words of ``tts/data/ja_core_words.tsv`` and of
+    ``tests/data/g2p_ref/ja_readings.tsv`` (read through ``kana_to_ipa``
+    where stored as kana) with kana particles; Chinese lines join words of
+    ``tts/data/zh_pinyin.tsv``, each with one fixed tag.  -> {"ja": dir,
+    "zh": file}."""
+    from moonshine_tpu_torch.tts import ja_align, lang_rules
+
+    rng = np.random.default_rng(seed)
+    here = os.path.dirname(os.path.abspath(__file__))
+    ja_words = {k: v for k, v in lang_rules.ja_core_lexicon().items()
+                if all(ja_align.is_kanji(c) for c in k) and len(k) <= 4}
+    with open(os.path.join(here, "tests", "data", "g2p_ref", "ja_readings.tsv"),
+              encoding="utf-8") as f:
+        for line in f:
+            k, _, v = line.rstrip("\n").partition("\t")
+            if v and not k.startswith("#") and all(ja_align.is_kanji(c) for c in k):
+                ja_words.setdefault(k, v)
+    surfaces = sorted(ja_words)
+    data = os.path.join(root, "core", "moonshine-tts", "tests", "data")
+    os.makedirs(os.path.join(data, "ja"))
+    os.makedirs(os.path.join(data, "zh_hans"))
+    tok_lines, gold_lines = [], []
+    for _ in range(CORPUS_JA_LINES):
+        toks, gold = [], []
+        for _ in range(int(rng.integers(2, 6))):
+            word = surfaces[int(rng.integers(len(surfaces)))]
+            particle = JA_PARTICLES[int(rng.integers(len(JA_PARTICLES)))]
+            toks += [f"{word}/NOUN", f"{particle}/ADP"]
+            gold += [ja_words[word], lang_rules.kana_to_ipa(particle)]
+        tok_lines.append(" ".join(toks + ["。/PUNCT"]))
+        gold_lines.append(" ".join(gold))
+    with open(os.path.join(data, "ja", "tok_pos_wiki_100.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(tok_lines) + "\n")
+    with open(os.path.join(data, "ja", "onnx_g2p_wiki_100.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(gold_lines) + "\n")
+    zh = []
+    with open(os.path.join(here, "moonshine_tpu_torch", "tts", "data", "zh_pinyin.tsv"),
+              encoding="utf-8") as f:
+        for line in f:
+            if line.strip() and not line.startswith("#"):
+                zh.append(line.split("\t", 1)[0])
+    tag_of = {w: CORPUS_TAGS[i % len(CORPUS_TAGS)] for i, w in enumerate(sorted(zh))}
+    lines = []
+    for _ in range(CORPUS_ZH_LINES):
+        words = [zh[int(i)] for i in rng.integers(0, len(zh), int(rng.integers(6, 16)))]
+        lines.append(" ".join([f"{w}/{tag_of[w]}" for w in words] + ["。/PUNCT"]))
+    zh_path = os.path.join(data, "zh_hans", "tok_pos_wiki_filtered.txt")
+    with open(zh_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"ja": os.path.join(data, "ja"), "zh": zh_path}
+
+
+def hold_scheduled_steps(what: str, base, make_step, schedule, cfg, data, draw, dev) -> dict:
+    """``G2P_HOLD_STEPS + 1`` steps of ``make_step(schedule)`` from the CPU
+    model ``base`` on the card and on the CPU, on the same batches (rows
+    ``draw()`` of every array of ``data``): the losses of the steps whose lr
+    is above 0 to TRAIN_LOSS_RTOL, then the last step through ``hold_step``
+    (its replay restores the card's optimizer state from before it).  The
+    card's state is returned to be trained on."""
+    from moonshine_tpu_torch.train import step as ts
+    from moonshine_tpu_torch.train.g2p import train_state
+
+    peak = max(schedule(i) for i in range(G2P_HOLD_STEPS + 1))
+    devices = {"cpu": "cpu", "card": dev}
+    states = {k: train_state(copy.deepcopy(base).to(d), peak) for k, d in devices.items()}
+    step = make_step(schedule)
+    losses: dict = {"cpu": [], "card": []}
+    for i in range(G2P_HOLD_STEPS + 1):
+        idx = draw()
+        if i == G2P_HOLD_STEPS:
+            before = copy.deepcopy(states["card"].params).cpu()
+            opt_before = copy.deepcopy(states["card"].opt_state.state_dict())
+        for k, d in devices.items():
+            batch = tuple(torch.from_numpy(np.ascontiguousarray(a[idx])).to(d) for a in data)
+            states[k], loss = step(states[k], batch, cfg)
+            losses[k].append(float(loss))
+    lrs = [schedule(i) for i in range(G2P_HOLD_STEPS + 1)]
+    gaps = [abs(a - b) / abs(b) for a, b, lr in zip(losses["card"], losses["cpu"], lrs) if lr > 0]
+    log(f"  {what}: lr {lrs[0]:g} then {', '.join(f'{x:.3g}' for x in lrs[1:])}; losses card "
+        f"{', '.join(f'{x:.6f}' for x in losses['card'])}, cpu "
+        f"{', '.join(f'{x:.6f}' for x in losses['cpu'])}; largest rel gap where lr > 0 "
+        f"{max(gaps):.3e} (tol {TRAIN_LOSS_RTOL:g})")
+    if not max(gaps) <= TRAIN_LOSS_RTOL:
+        raise SystemExit(f"{what}: the card's losses differ from the CPU's")
+    lr = lrs[-1]
+
+    def resumed(params):
+        opt = ts.adamw(lr)(params)
+        opt.load_state_dict(opt_before)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        return opt
+
+    card, cpu = states["card"].params, states["cpu"].params
+    card_grads = _named(card, True)
+    held = hold_step(f"{what}, step {G2P_HOLD_STEPS} (lr {lr:.3g})", losses["card"][-1],
+                     losses["cpu"][-1], card_grads, _named(cpu, True), _named(card),
+                     _named(cpu), replay_update(before, resumed, card_grads), lr)
+    return {"losses_card": losses["card"], "losses_cpu": losses["cpu"], "lrs": lrs,
+            "loss_rel_gaps": gaps, "held": held, "state": states["card"]}
+
+
+def phase_g2p_trainers(tmp: str, card: str, dev: str = "cuda") -> dict:
+    """The G2P and tagger trainers on the card at the published widths:
+    ``distill("en")`` at its defaults (``G2PModelConfig()``: 128 wide, 2 + 2
+    layers, 4 heads, 28 -> 40; 2,000 steps of batch 64 at lr 3e-3 over the
+    212 pairs the engine gives without the baked dictionary), then
+    ``train_ja_reader`` (``DEFAULT_CFG``) and ``train_tok_pos`` (zh,
+    ``TokPosConfig()``: 128 wide, 2 layers, ``max_len`` 192) on
+    ``write_reference_corpora``, at JA_READER_STEPS and TOK_POS_STEPS.
+    Each trainer's step is first held card against CPU from the same
+    weights (``hold_scheduled_steps``); the distill step is timed over
+    G2P_TIMED_STEPS more steps, each read back (the median), then over as
+    many read back once (steps/s), and one is traced.  The trained models, moved
+    to the CPU, predict, annotate and drive ``JapaneseG2P(neural=...)`` as
+    on the card."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from moonshine_tpu_torch.train import g2p as tg
+    from moonshine_tpu_torch.train import ja_reader as tjr
+    from moonshine_tpu_torch.train import step as ts
+    from moonshine_tpu_torch.train import tok_pos as ttp
+    from moonshine_tpu_torch.tts import g2p_transformer as g2pt
+    from moonshine_tpu_torch.tts import ja_align, lang_rules
+    from moonshine_tpu_torch.tts import tok_pos as tpos
+
+    out: dict = {}
+    cfg = g2pt.G2PModelConfig()
+    _, pairs = tg.build_dataset("en")
+    vocab = g2pt.G2PTransformer.build_out_vocab(ipa for _, ipa in pairs)
+    holder = g2pt.G2PTransformer(cfg, g2pt.init_params(
+        cfg, torch.Generator().manual_seed(7), len(vocab), device="cpu"), vocab, device="cpu")
+    src = np.stack([g2pt.encode_word(w, cfg.max_word) for w, _ in pairs])
+    tgt = np.stack([holder.encode_ipa(ipa) for _, ipa in pairs])
+    sched = ts.warmup_cosine_decay_schedule(0.0, 3e-3, 100, 2000)
+    rng = np.random.default_rng(0)
+    draw = lambda: rng.integers(0, len(pairs), size=64)  # noqa: E731
+    held = hold_scheduled_steps("distill's step", holder.params, tg.make_train_step, sched, cfg,
+                                (src, tgt), draw, dev)
+    state = held.pop("state")
+    step = tg.make_train_step(sched)
+    on_dev = [torch.from_numpy(a).to(dev) for a in (src, tgt)]
+    rows = torch.from_numpy(np.stack([draw() for _ in range(2 * G2P_TIMED_STEPS + 1)])).to(dev)
+    times = []
+    for i in range(G2P_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, tuple(a[rows[i]] for a in on_dev), cfg)
+        float(loss)
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(G2P_TIMED_STEPS, 2 * G2P_TIMED_STEPS):
+        state, loss = step(state, tuple(a[rows[i]] for a in on_dev), cfg)
+    torch.cuda.synchronize()
+    steps_per_s = G2P_TIMED_STEPS / (time.perf_counter() - t0)
+    trace = traced(lambda: step(state, tuple(a[rows[-1]] for a in on_dev), cfg))
+    step_ms = statistics.median(times) * 1e3
+    log(f"  distill's step (batch 64, G2PModelConfig()): {step_ms:.3f} ms median over "
+        f"{G2P_TIMED_STEPS}, each read back ({min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}); "
+        f"{steps_per_s:.1f} steps/s over {G2P_TIMED_STEPS} more, read back once; one step "
+        f"traced: {trace['wall_ms']:.3f} ms wall, {trace['device_ms']:.3f} ms of kernels, idle "
+        f"{trace['idle_share']:.3f}, {trace['launches']} launches; on {card}")
+    log("  the traced step's kernels by device time: " + "; ".join(
+        f"{name} {ms:.3f} ms x{count}" for name, ms, count in trace["top"]))
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        model, acc = tg.distill("en", log_every=200)
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    curve = [float(m) for m in re.findall(r"loss ([0-9.]+)", printed.getvalue())]
+    words = [w for w, _ in pairs]
+    on_cpu = g2pt.G2PTransformer(cfg, copy.deepcopy(model.params).cpu(), model.out_vocab,
+                                 device="cpu")
+    preds, cpu_preds = model.predict_batch(words), on_cpu.predict_batch(words)
+    same = preds == cpu_preds
+    log(f"  distill('en') at its defaults: {len(pairs)} pairs, 2000 steps in {distill_s:.2f} s "
+        f"({2000 / distill_s:.1f} steps/s with the data, the logging and the final "
+        f"predictions), loss at step 200 {curve[0]:.4f} -> step 2000 {curve[-1]:.4f}, "
+        f"exact match {acc:.4f}; predictions on the cpu equal {same}")
+    if not same or not np.isfinite(curve).all() or not curve[-1] < curve[0]:
+        raise SystemExit("distill on the card: the loss did not fall or the cpu predicts otherwise")
+    out["distill"] = {**held, "step_ms": step_ms, "steps_per_s": steps_per_s,
+                      "step_ms_spread": [min(times) * 1e3, max(times) * 1e3], "trace": trace,
+                      "seconds": distill_s, "loss_curve": curve, "accuracy": acc,
+                      "pairs": len(pairs), "cpu_predictions_equal": same}
+
+    # The port's corpus paths point at the synthetic corpora for the two
+    # trainers, and back afterwards.
+    paths = write_reference_corpora(tmp)
+    saved = ja_align.REF_JA_DIR, dict(ttp.CORPORA)
+    ja_align.REF_JA_DIR = Path(paths["ja"])
+    ttp.CORPORA.update(zh=Path(paths["zh"]), ja=Path(paths["ja"]) / "tok_pos_wiki_100.txt")
+    try:
+        data, _ = tjr.build_ja_dataset()
+        surfaces = [s for s, _ in data]
+        in_vocab = g2pt.G2PTransformer.build_in_vocab(surfaces)
+        out_vocab = g2pt.G2PTransformer.build_out_vocab(p for _, p in data)
+        rcfg = tjr.DEFAULT_CFG
+        base = g2pt.init_params(rcfg, torch.Generator().manual_seed(8), len(out_vocab),
+                                len(in_vocab) + 4, "cpu")
+        reader0 = g2pt.G2PTransformer(rcfg, base, out_vocab, in_vocab, device="cpu")
+        r_src = np.stack([reader0.encode_src(s) for s in surfaces])
+        r_tgt = np.stack([reader0.encode_ipa(p) for _, p in data])
+        rrng = np.random.RandomState(0)
+        r_held = hold_scheduled_steps(
+            "ja_reader's step", base, tg.make_train_step,
+            ts.warmup_cosine_decay_schedule(0.0, tjr.LR, tjr.WARMUP, JA_READER_STEPS), rcfg,
+            (r_src, r_tgt), lambda: rrng.randint(0, len(r_src), size=128), dev)
+        r_held.pop("state")
+        t0 = time.perf_counter()
+        reader = tjr.train_ja_reader(steps=JA_READER_STEPS, init_params=base.to(dev))
+        torch.cuda.synchronize()
+        reader_s = time.perf_counter() - t0
+        cpu_reader = g2pt.G2PTransformer(rcfg, copy.deepcopy(reader.params).cpu(),
+                                         reader.out_vocab, reader.in_vocab, device="cpu")
+        uniq = sorted(set(data))
+        r_preds = reader.predict_batch([s for s, _ in uniq])
+        r_same = r_preds == cpu_reader.predict_batch([s for s, _ in uniq])
+        fit = sum(p == ipa for p, (_, ipa) in zip(r_preds, uniq)) / len(uniq)
+        ipa = {}
+        for name, r in (("card", reader), ("cpu", cpu_reader)):
+            g = lang_rules.JapaneseG2P(lexicon={"学校": "gakkoɯ"}, use_harvested=False,
+                                       use_core=False, use_onyomi=False, tagger=False, neural=r)
+            ipa[name] = g.word_to_ipa(JA_NEURAL_LINE)
+        log(f"  train_ja_reader ({len(data)} pairs, {len(uniq)} distinct, {JA_READER_STEPS} steps "
+            f"of batch 128): {reader_s:.2f} s, fit exact match {fit:.4f}, predictions on the cpu "
+            f"equal {r_same}; JapaneseG2P(neural=reader) on {JA_NEURAL_LINE!r}: {ipa['card']!r} "
+            f"on the card, equal on the cpu {ipa['card'] == ipa['cpu']}")
+        if not r_same or ipa["card"] != ipa["cpu"]:
+            raise SystemExit("the ja reader trained on the card reads otherwise on the cpu")
+        out["ja_reader"] = {**r_held, "seconds": reader_s, "fit": fit, "pairs": len(data),
+                            "cpu_predictions_equal": r_same, "neural_line_ipa": ipa["card"]}
+
+        rows = ttp.load_corpus("zh")
+        train_rows, held_rows = rows[:int(len(rows) * 0.8)], rows[int(len(rows) * 0.8):]
+        chars = sorted({c for text, _ in train_rows for c in text})
+        tags = sorted({t for _, toks in train_rows for _, t in toks})
+        tcfg = tpos.TokPosConfig()
+        t_base = tpos.init_params(tcfg, torch.Generator().manual_seed(9), len(chars) + 2,
+                                  len(tags), "cpu")
+        labels = ttp.make_labels(train_rows, tcfg, tpos.TokPosTagger(tcfg, t_base, chars, tags,
+                                                                      device="cpu"))
+        trng = np.random.RandomState(0)
+        t_held = hold_scheduled_steps(
+            "tok_pos's step", t_base, ttp.make_train_step,
+            ts.warmup_cosine_decay_schedule(0.0, ttp.LR, ttp.WARMUP, TOK_POS_STEPS), tcfg,
+            labels, lambda: trng.randint(0, len(labels[0]), size=16), dev)
+        t_held.pop("state")
+        t0 = time.perf_counter()
+        tagger, _, _ = ttp.train_tok_pos("zh", steps=TOK_POS_STEPS, init_params=t_base.to(dev))
+        torch.cuda.synchronize()
+        tagger_s = time.perf_counter() - t0
+        cpu_tagger = tpos.TokPosTagger(tcfg, copy.deepcopy(tagger.params).cpu(), tagger.char_vocab,
+                                       tagger.tags, device="cpu")
+        a_same = all(tagger.annotate(t) == cpu_tagger.annotate(t) for t, _ in rows)
+        f1 = {"train": ttp.word_f1(tagger, train_rows), "held": ttp.word_f1(tagger, held_rows),
+              "held_pos": ttp.word_f1(tagger, held_rows, with_pos=True)}
+        log(f"  train_tok_pos('zh', {TOK_POS_STEPS} steps of batch 16): {tagger_s:.2f} s, seg F1 "
+            f"train {f1['train']:.3f} held {f1['held']:.3f}, seg+UPOS held {f1['held_pos']:.3f}; "
+            f"annotations on the cpu equal {a_same}; on {card}")
+        if not a_same:
+            raise SystemExit("the tagger trained on the card annotates otherwise on the cpu")
+        out["tok_pos"] = {**t_held, "seconds": tagger_s, "f1": f1, "cpu_annotations_equal": a_same}
+    finally:
+        ja_align.REF_JA_DIR, ttp.CORPORA = saved
+    return out
+
+
 def gather_entry(name: str, replaces: str, launches: int, max_err: float, t: dict,
                  extra: dict | None = None) -> dict:
     return {"name": name, "route": "cuda", "source": "moonshine_tpu_torch/csrc/beam_gather.cu",
@@ -4373,10 +4678,18 @@ def main() -> int:
         reset_launches(ea, bg)
         small_train = phase_small_trainers(card)
         train_launches["spelling and diarization train"] = kernel_launches(ea, bg)
+        log("[g2p and tagger train] distill('en'), train_ja_reader and train_tok_pos on cuda, "
+            "card against cpu")
+        t_g2p = time.perf_counter()
+        reset_launches(ea, bg)
+        g2p_train = phase_g2p_trainers(os.path.join(tmp, "reference"), card)
+        train_launches["g2p and tagger train"] = kernel_launches(ea, bg)
+        g2p_train["phase_s"] = time.perf_counter() - t_g2p
         train_s = time.perf_counter() - t_train
-        log(f"  kernel launches: {train_launches}; the five training phases took "
-            f"{train_s:.1f} s on {card}")
-        for path in ("train step", "streaming train", "spelling and diarization train"):
+        log(f"  kernel launches: {train_launches}; the six training phases took "
+            f"{train_s:.1f} s ([g2p and tagger train] {g2p_train['phase_s']:.1f} s) on {card}")
+        for path in ("train step", "streaming train", "spelling and diarization train",
+                     "g2p and tagger train"):
             if any(train_launches[path].values()):
                 raise SystemExit(f"the {path} path launched a kernel with no backward")
 
@@ -4471,7 +4784,7 @@ def main() -> int:
               "edges_s": edges_s, "train_step": train_step,
               "finetune_and_checkpoint": finetune_ckpt, "weight_tp": weight_tp,
               "streaming_train": streaming_train, "small_trainers": small_train,
-              "train_launches": train_launches, "train_s": train_s,
+              "g2p_train": g2p_train, "train_launches": train_launches, "train_s": train_s,
               "total_s": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

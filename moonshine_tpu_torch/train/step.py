@@ -28,8 +28,10 @@ from __future__ import annotations
 import copy
 import functools
 import inspect
+import math
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -63,6 +65,32 @@ def adamw(learning_rate: float, weight_decay: float = 1e-4) -> Callable:
 def adam(learning_rate: float) -> Callable:
     """``optax.adam(learning_rate)``: an optimizer factory over parameters."""
     return functools.partial(torch.optim.Adam, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule(init_value, peak_value,
+    warmup_steps, decay_steps)``: count -> learning rate, a linear warm-up
+    over ``warmup_steps`` then a cosine decay to 0 at ``decay_steps``
+    (which counts the warm-up).  optax computes in float32; so does this,
+    in optax's order, with a correctly rounded cosine (XLA's differs from
+    it by one float32 ulp at a few counts).  Like optax's optimizers, a
+    step reads the schedule at the count of steps taken before it, so the
+    first step of a warm-up from 0 updates nothing."""
+    f32 = np.float32
+    span = decay_steps - warmup_steps
+    if warmup_steps <= 0 or span <= 0:
+        raise ValueError(f"need 0 < warmup_steps < decay_steps, got {warmup_steps}, "
+                         f"{decay_steps}")
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = f32(1) - f32(max(count, 0)) / f32(warmup_steps)
+            return float(f32(init_value - peak_value) * frac + f32(peak_value))
+        x = f32(math.pi) * f32(min(count - warmup_steps, span)) / f32(span)
+        return float(f32(peak_value) * (f32(0.5) * (f32(1) + f32(math.cos(float(x))))))
+
+    return schedule
 
 
 def optimizer_like(opt: torch.optim.Optimizer, params) -> torch.optim.Optimizer:
@@ -119,6 +147,22 @@ class TrainState(NamedTuple):
     params: Any  # the model, trained in place
     opt_state: Any  # a torch.optim optimizer over its trainable parameters
     step: int
+
+
+def scheduled_step(state: TrainState, schedule: Callable[[int], float],
+                   loss_fn: Callable[[nn.Module], torch.Tensor]) -> tuple[TrainState, torch.Tensor]:
+    """One step of ``state``'s optimizer on ``loss_fn(model)`` at the
+    learning rate ``schedule(state.step)``, as an optax transform over a
+    schedule takes it; -> (the next state, the loss before the step)."""
+    model, opt = state.params, state.opt_state
+    opt.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss = loss_fn(model)
+        loss.backward()
+    for group in opt.param_groups:
+        group["lr"] = schedule(state.step)
+    opt.step()
+    return TrainState(model, opt, state.step + 1), loss.detach()
 
 
 def make_train_state(model: nn.Module, optimizer: Callable, copy_params: bool = True,

@@ -8,7 +8,12 @@ live in the safetensors file's ``__metadata__``, so a saved model is one
 self-describing artifact; ``save`` and ``load`` read and write the JAX
 package's tensor names (``enc/0/qkv/w`` ...) and layouts (dense kernels
 ``[in, out]``), so an artifact written by either package loads in the
-other.  Training (the JAX package's ``train/g2p.py``) is not ported.
+other.  ``train/g2p.py`` and ``train/ja_reader.py`` train it.
+
+``encode`` and ``decoder_logits`` record an autograd graph when the
+parameters require gradients (training); the inference entry points,
+``greedy`` and ``G2PTransformer.predict_batch``, run under
+``torch.inference_mode``.
 
 The GELU here is the tanh approximation (``jax.nn.gelu``'s default), not
 the exact one of ``models/layers.gelu``.
@@ -145,23 +150,21 @@ def _dec_block(p: G2PBlock, x, memory, heads, self_mask, cross_mask):
     return x + dense(p.fc2, _gelu(dense(p.fc1, h)))
 
 
-@torch.inference_mode()
 def encode(model: G2PModel, cfg: G2PModelConfig, src: torch.Tensor):
     """src [B, max_word] -> (memory [B, max_word, D], valid [B, max_word])."""
     valid = src != PAD
-    x = model.in_embed[src.long()] + model.in_pos[None, :, :]
+    x = F.embedding(src.long(), model.in_embed) + model.in_pos[None, :, :]
     mask = valid[:, None, None, :]
     for blk in model.enc:
         x = _enc_block(blk, x, cfg.heads, mask)
     return x, valid
 
 
-@torch.inference_mode()
 def decoder_logits(model: G2PModel, cfg: G2PModelConfig, memory: torch.Tensor,
                    mem_valid: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     """Teacher-forced logits [B, T, V] for target prefix ids [B, T]."""
     t = tgt.shape[1]
-    x = model.out_embed[tgt.long()] + model.out_pos[None, :t, :]
+    x = F.embedding(tgt.long(), model.out_embed) + model.out_pos[None, :t, :]
     causal = torch.ones((t, t), dtype=torch.bool, device=tgt.device).tril()[None, None]
     self_mask = causal & (tgt != PAD)[:, None, None, :]
     cross_mask = mem_valid[:, None, None, :]
@@ -278,6 +281,7 @@ class G2PTransformer:
     def predict(self, word: str) -> str:
         return self.predict_batch([word])[0]
 
+    @torch.inference_mode()
     def predict_batch(self, words: list[str]) -> list[str]:
         src = np.stack([self.encode_src(w) for w in words])
         out = greedy(self.params, self.cfg, torch.from_numpy(src).to(self.device))

@@ -1,5 +1,5 @@
 """Char-level tokenizer-POS tagger — the zh/ja text-frontend neural tier,
-in PyTorch (inference only).
+in PyTorch.
 
 Counterpart of the JAX package's ``tts/tok_pos.py``.  The reference
 segments Chinese/Japanese text into words with UPOS tags via ONNX
@@ -14,7 +14,10 @@ The blocks are ``tts/g2p_transformer``'s encoder blocks, as in JAX.  An
 artifact is one safetensors file with the vocabulary, tags and config in
 its ``__metadata__`` and the JAX tree's tensor names (``enc/0/qkv/w`` ...)
 and layouts, so an artifact written by either package loads in the
-other.  Training (the JAX package's ``train/tok_pos.py``) is not ported.
+other.  ``train/tok_pos.py`` trains it: ``forward`` records an autograd
+graph when the parameters require gradients, and the inference entry
+points, ``TokPosTagger.logits`` and ``annotate``, run under
+``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
@@ -66,11 +70,10 @@ def init_params(cfg: TokPosConfig, generator: torch.Generator, in_vocab_size: in
     return model.to(resolve_device(device))
 
 
-@torch.inference_mode()
 def forward(model: TokPosModel, cfg: TokPosConfig, src: torch.Tensor):
     """src [B, max_len] int -> (bio logits [B, L, 2], pos logits [B, L, T])."""
     valid = src != PAD
-    x = model.embed[src.long()] + model.pos[None, : src.shape[1], :]
+    x = F.embedding(src.long(), model.embed) + model.pos[None, : src.shape[1], :]
     mask = valid[:, None, None, :]
     for blk in model.enc:
         x = _enc_block(blk, x, cfg.heads, mask)
@@ -97,11 +100,13 @@ class TokPosTagger:
         out[: len(ids)] = ids
         return out
 
+    @torch.inference_mode()
     def logits(self, text: str) -> tuple[torch.Tensor, torch.Tensor]:
         """(bio [1, L, 2], pos [1, L, T]) of a stripped line, on the device."""
         src = torch.from_numpy(self.encode(text.strip())[None, :]).to(self.device)
         return forward(self.params, self.cfg, src)
 
+    @torch.inference_mode()
     def annotate(self, text: str) -> list[tuple[str, str]]:
         """-> one (surface, UPOS) per predicted word (reference:
         ChineseTokPosOnnx::annotate)."""

@@ -617,7 +617,7 @@ def phase_main_path(ea, tokenizer_path: str, cfg) -> dict:
             return inner(audio, segment_id, is_final)
 
         backend.transcribe_segment = counting
-        launches0 = ea.encoder_attention_packed.launches
+        launches0 = launch_count(ea.encoder_attention_packed)
         lines, walls = [], []
         for clip in clips:  # the text comes back to the host, so each wall is complete
             t0 = time.perf_counter()
@@ -625,7 +625,7 @@ def phase_main_path(ea, tokenizer_path: str, cfg) -> dict:
             walls.append(time.perf_counter() - t0)
         wall = sum(walls)
         tokens = sum(len(text.split()) for text in lines)  # one word per token here
-        launched = ea.encoder_attention_packed.launches - launches0
+        launched = launch_count(ea.encoder_attention_packed) - launches0
         log(f"  {label}: {len(encoded)} segments encoded, {len(lines)} lines, ~{tokens} "
             f"tokens, {launched} K1 launches, {wall:.3f} s wall for "
             f"{sum(len(c) for c in clips) / SAMPLE_RATE:.2f} s of audio; per clip "
@@ -778,17 +778,17 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
     """encode + greedy_decode at the bench configuration (batched_workload,
     with w8a8 weights if asked): one warm-up and the best of 3."""
     encode, decode, max_tokens = batched_workload(cfg, batch, w8a8)
-    launches_start = ea.encoder_attention_packed.launches
+    launches_start = launch_count(ea.encoder_attention_packed)
     memory, res, _, _ = run_once(encode, decode)  # warm-up
     check_decode(memory, res, cfg, batch, max_tokens, "batched decode")
-    launches0 = ea.encoder_attention_packed.launches
+    launches0 = launch_count(ea.encoder_attention_packed)
     walls, encs, decs = [], [], []
     for _ in range(3):
         _, res, enc_s, dec_s = run_once(encode, decode)
         walls.append(enc_s + dec_s)
         encs.append(enc_s)
         decs.append(dec_s)
-    per_encode = (ea.encoder_attention_packed.launches - launches0) / 3
+    per_encode = (launch_count(ea.encoder_attention_packed) - launches0) / 3
     if per_encode != cfg.encoder_layers:
         raise SystemExit(f"K1 launched {per_encode} times per encode, not {cfg.encoder_layers}")
     best = min(walls)
@@ -798,7 +798,7 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
            "decode_s": decs, "audio_s_per_s": batch * seconds / best,
            "mean_tokens": float(res.lengths.float().mean()),
            "k1_launches_per_encode": per_encode,
-           "k1_launches": ea.encoder_attention_packed.launches - launches_start, "w8a8": w8a8,
+           "k1_launches": launch_count(ea.encoder_attention_packed) - launches_start, "w8a8": w8a8,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  B={batch} x {seconds} s (T={out['frames']}), {max_tokens} tokens, bf16, int8 KV"
         f"{', w8a8 weights' if w8a8 else ''}: "
@@ -817,11 +817,11 @@ def phase_beam(ea, bg, cfg, batch: int, card: str) -> dict:
     encode, decode, max_tokens = beam_workload(cfg, batch)
     counters = (ea.encoder_attention_packed, bg.gather_kv_rows, bg.gather_scale_rows)
     for c in counters:
-        c.launches = 0
+        zero_launch_count(c)
     memory, res, _, _ = run_once(encode, decode)  # warm-up
     check_decode(memory, res, cfg, batch, max_tokens, "batched beam")
     torch.cuda.reset_peak_memory_stats()
-    before = [c.launches for c in counters]
+    before = [launch_count(c) for c in counters]
     walls, encs, decs, all_steps = [], [], [], 0
     for _ in range(3):
         _, res, enc_s, dec_s = run_once(encode, decode)
@@ -829,7 +829,7 @@ def phase_beam(ea, bg, cfg, batch: int, card: str) -> dict:
         encs.append(enc_s)
         decs.append(dec_s)
         all_steps += res.steps
-    k1, k3, k4 = (c.launches - b for c, b in zip(counters, before))
+    k1, k3, k4 = (launch_count(c) - b for c, b in zip(counters, before))
     steps = all_steps / 3
     if k1 / 3 != cfg.encoder_layers:
         raise SystemExit(f"K1 launched {k1 / 3} times per encode, not {cfg.encoder_layers}")
@@ -845,7 +845,7 @@ def phase_beam(ea, bg, cfg, batch: int, card: str) -> dict:
            "steps_per_decode": steps, "mean_tokens": float(res.lengths.float().mean()),
            "k1_launches_per_encode": k1 / 3, "k3_launches_per_decode": k3 / 3,
            "k4_launches_per_decode": k4 / 3,
-           "launches": {c.__name__: c.launches for c in counters},
+           "launches": {c.__name__: launch_count(c) for c in counters},
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  B={batch} x beam {BEAM_SIZE} x {BATCHED_SECONDS} s (T={out['frames']}), "
         f"{max_tokens} tokens, bf16, int8 KV: best {best:.4f} s (encode {min(encs):.4f} s, "
@@ -945,7 +945,7 @@ def phase_sharded(ea, bg, cfg, draft_cfg, batch: int, card: str) -> dict:
         counters = (ea.encoder_attention_packed, ea.encoder_attention, bg.gather_kv_rows,
                     bg.gather_scale_rows)
         for c in counters:
-            c.launches = 0
+            zero_launch_count(c)
         with torch.inference_mode():
             t0 = time.perf_counter()
             rows, row_caps = shard_batch(mesh, (audio, caps))
@@ -968,7 +968,7 @@ def phase_sharded(ea, bg, cfg, draft_cfg, batch: int, card: str) -> dict:
                 mesh, (memory, greedy, beam, spec))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {c.__name__: c.launches for c in counters}
+            launches = {c.__name__: launch_count(c) for c in counters}
 
             ref_memory, _ = mm.encode(model, cfg, audio, attn_impl="auto")
             kt = k.flatten(2).transpose(1, 2).contiguous()
@@ -1208,10 +1208,11 @@ def phase_eval(bg, cfg, tok_path: str, root: str, card: str) -> dict:
             f.write(f"W{3 + i} W{40 + i} SOME WORDS\n")
     model = mm.init_params(cfg, torch.Generator().manual_seed(0)).to("cuda", torch.bfloat16)
     for c in (bg.gather_kv_rows, bg.gather_scale_rows):
-        c.launches = 0
+        zero_launch_count(c)
     res = evaluate(model, cfg, BinTokenizer.from_file(tok_path), root, batch_size=16,
                    beam_size=BEAM_SIZE)
-    res["launches"] = {c.__name__: c.launches for c in (bg.gather_kv_rows, bg.gather_scale_rows)}
+    res["launches"] = {c.__name__: launch_count(c)
+                       for c in (bg.gather_kv_rows, bg.gather_scale_rows)}
     log(f"  {res['utterances']} clips, {res['audio_seconds']:.2f} s of audio, beam "
         f"{res['beam_size']}: WER {res['wer']:.4f} ({res['errors']} errors / {res['words']} "
         f"words, random weights), {res['audio_seconds_per_second']:.2f} audio-s/s on {card}; "
@@ -1271,13 +1272,13 @@ def phase_w8a8_main_path(ea, tokenizer_path: str, model, cfg) -> dict:
     if tr.device.type != "cuda" or tr.model.decoder.layers[0].mlp.fc1.w_q.device.type != "cuda":
         raise SystemExit("the w8a8 Transcriber is not on cuda")
     clips = [synthetic_clip(s, 20 + i) for i, s in enumerate((2.5, BATCHED_SECONDS))]
-    ea.encoder_attention_packed.launches = 0
+    zero_launch_count(ea.encoder_attention_packed)
     lines, walls = [], []
     for clip in clips:
         t0 = time.perf_counter()
         lines += [line.text or "" for line in tr.transcribe(clip).lines]
         walls.append(time.perf_counter() - t0)
-    launched = ea.encoder_attention_packed.launches
+    launched = launch_count(ea.encoder_attention_packed)
     log(f"  {len(lines)} lines, {launched} K1 launches, {sum(walls):.3f} s wall for "
         f"{sum(len(c) for c in clips) / SAMPLE_RATE:.2f} s of audio; per clip "
         + ", ".join(f"{len(c) / SAMPLE_RATE:g} s: {w:.3f} s" for c, w in zip(clips, walls)))
@@ -1353,10 +1354,10 @@ def phase_checkpoint(ea, tokenizer_path: str, model, cfg, root: str) -> dict:
     wav = os.path.join(root, "clip.wav")
     save_wav(wav, synthetic_clip(BATCHED_SECONDS, 11), SAMPLE_RATE)
     samples, _ = load_wav(wav)
-    ea.encoder_attention_packed.launches = 0
+    zero_launch_count(ea.encoder_attention_packed)
     texts = {"catalog": [line.text for line in tr.transcribe(samples).lines],
              "wav": [line.text for line in tr.transcribe_wav(wav).lines]}
-    launched = ea.encoder_attention_packed.launches
+    launched = launch_count(ea.encoder_attention_packed)
     texts["with_params"] = [line.text for line in ref.transcribe(samples).lines]
     same = texts["catalog"] == texts["with_params"] == texts["wav"]
     log(f"  checkpoint {os.path.getsize(os.path.join(entry, 'model.safetensors')) / 1e6:.1f} MB "
@@ -1529,15 +1530,29 @@ def state_bytes(state) -> dict:
     return out
 
 
+def launch_count(fn) -> int:
+    """Launches of one of the port's kernel wrappers so far (the recorder's
+    ``launches.<wrapper>`` counter)."""
+    from moonshine_tpu_torch import profiling
+
+    return profiling.counter("launches." + fn.__name__)
+
+
+def zero_launch_count(fn) -> None:
+    from moonshine_tpu_torch import profiling
+
+    profiling.reset_counter("launches." + fn.__name__)
+
+
 def kernel_launches(ea, bg) -> dict:
-    return {c.__name__: c.launches for c in (ea.encoder_attention_packed, ea.encoder_attention,
-                                             bg.gather_kv_rows, bg.gather_scale_rows)}
+    return {c.__name__: launch_count(c) for c in (ea.encoder_attention_packed, ea.encoder_attention,
+                                                  bg.gather_kv_rows, bg.gather_scale_rows)}
 
 
 def reset_launches(ea, bg) -> None:
     for c in (ea.encoder_attention_packed, ea.encoder_attention, bg.gather_kv_rows,
               bg.gather_scale_rows):
-        c.launches = 0
+        zero_launch_count(c)
 
 
 def phase_serving(card: str) -> dict:
@@ -2631,7 +2646,7 @@ def phase_voice_loop(ea, tokenizer_path: str, card_emb, card: str, seed: int = 0
         agent.listen_for(sentence, flow_for(sentence))
     agent.load()
     played.clear()
-    launches0 = ea.encoder_attention_packed.launches
+    launches0 = launch_count(ea.encoder_attention_packed)
     t0 = time.perf_counter()
     res = ti.evaluate(tts.synthesize, transcribe)
     for _, hyp, _ in res.per_sentence:
@@ -2641,7 +2656,7 @@ def phase_voice_loop(ea, tokenizer_path: str, card_emb, card: str, seed: int = 0
     tts.wait()
     loop_s = time.perf_counter() - t0
     tts.stop()
-    k1 = ea.encoder_attention_packed.launches - launches0
+    k1 = launch_count(ea.encoder_attention_packed) - launches0
     spoken = [s for s in said if s is not None]
     log(f"  loop: {len(res.per_sentence)} sentences synthesized, transcribed by base on cuda and "
         f"fed to the agent in {loop_s:.3f} s; K1 {k1} launches; {res.summary()} (random weights, "
@@ -2856,11 +2871,11 @@ def phase_voice_clone(ea, tokenizer_path: str, card: str, seed: int = 0) -> dict
         vad_threshold=0, word_timestamps=True).load()
     if tr.device.type != "cuda":
         raise SystemExit("the clip's Transcriber is not on cuda")
-    launches0 = ea.encoder_attention_packed.launches
+    launches0 = launch_count(ea.encoder_attention_packed)
     t0 = time.perf_counter()
     words = [w for line in tr.transcribe(speech).lines for w in line.words]
     asr_s = time.perf_counter() - t0
-    k1 = ea.encoder_attention_packed.launches - launches0
+    k1 = launch_count(ea.encoder_attention_packed) - launches0
     if not words:
         raise SystemExit("the clip's transcription gave no word times")
     clip = session.finalize(words=words)
@@ -3409,11 +3424,11 @@ def phase_cli_and_download(ea, catalog_root: str, root: str, card: str) -> dict:
     os.environ["MOONSHINE_TPU_CACHE"] = catalog_root
     try:
         argv = ["transcribe", wav, "--model", "base", "--vad-threshold", "0"]
-        ea.encoder_attention_packed.launches = 0
+        zero_launch_count(ea.encoder_attention_packed)
         t0 = time.perf_counter()
         rc, out, err = run_cli(argv)
         transcribe_s = time.perf_counter() - t0
-        k1 = ea.encoder_attention_packed.launches
+        k1 = launch_count(ea.encoder_attention_packed)
         rc_cpu, out_cpu, _ = run_cli(argv + ["--device", "cpu"])
     finally:
         if old is None:
@@ -3721,7 +3736,7 @@ def phase_train_step(ea, card: str, dev: str = "cuda") -> dict:
     t0 = time.perf_counter()
     cpu_state, cpu_m = step(ts.make_train_state(base, opt), batch_cpu)
     cpu_s = time.perf_counter() - t0
-    ea.encoder_attention_packed.launches = 0
+    zero_launch_count(ea.encoder_attention_packed)
     # The peak counts all that is allocated on the card, what earlier
     # phases still hold (printed beside it) included.
     held_before = torch.cuda.memory_allocated()
@@ -3743,7 +3758,7 @@ def phase_train_step(ea, card: str, dev: str = "cuda") -> dict:
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     trace = traced(lambda: step(state, batch))
-    k1 = ea.encoder_attention_packed.launches
+    k1 = launch_count(ea.encoder_attention_packed)
     step_ms = statistics.median(times) * 1e3
     tokens = int(batch.token_mask.sum())
     ratio = losses[-1] / losses[0]
@@ -3852,11 +3867,11 @@ def phase_finetune_and_checkpoint(ea, tmp: str, card: str, dev: str = "cuda") ->
                and all(torch.equal(a, b) for a, b in zip(_named(cont.params).values(),
                                                        _named(resumed.params).values())))
 
-    ea.encoder_attention_packed.launches = 0
+    zero_launch_count(ea.encoder_attention_packed)
     t = Transcriber(model=cfg, tokenizer_path=tok_path, device=dev,
                     options=TranscriberOptions(vad=VadOptions(threshold=0.0)))
     transcript = t.with_params(res.params).load().transcribe(examples[0][0])
-    k1 = ea.encoder_attention_packed.launches
+    k1 = launch_count(ea.encoder_attention_packed)
     lines = [line.text for line in transcript.lines]
     log(f"  export -> import -> export: same bytes {same_bytes}, same tensors {same_tensors}; "
         f"train-state checkpoint resumes the exact next step: {resumes}; "
@@ -4493,9 +4508,9 @@ def main() -> int:
         with open(tok_path, "wb") as f:
             f.write(BinTokenizer(vocab).to_bytes())
         log("[main path] Transcriber(model='base') on cuda")
-        ea.encoder_attention_packed.launches = 0
+        zero_launch_count(ea.encoder_attention_packed)
         main_path = phase_main_path(ea, tok_path, BASE)
-        main_launches = ea.encoder_attention_packed.launches
+        main_launches = launch_count(ea.encoder_attention_packed)
         model = main_path.pop("model")
         log("[reference check]")
         ref = phase_reference_check(model, BASE)

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``decoding/greedy.py``.  JAX runs the loop
 as one ``lax.while_loop`` on the device; here it is a Python loop of eager
 steps.  It stops once every batch element has emitted EOS or reached its
 per-utterance token cap (the ``duration * max_tokens_per_second``
-hallucination watchdog), which costs one host sync per step.
+hallucination watchdog), which costs one host sync per step.  Each call
+records its spans in ``profiling``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from ..core.config import MoonshineArchConfig
 from ..models import moonshine as mm
 
@@ -31,11 +33,19 @@ def greedy_decode(
     max_tokens: int,
     token_caps: torch.Tensor | None = None,  # [B] per-utterance cap
     kv_int8: bool = False,  # int8 KV caches (ops/int8_kv.py)
+    *,
+    span_parent: profiling.Span | None = None,
 ) -> GreedyResult:
+    """Records a coarse ``greedy.decode`` span (``batch``, ``decoder_calls``,
+    ``read_ns``) under ``span_parent``; with fine spans on, a
+    ``greedy.prefill`` and a ``greedy.step`` a decoder call under it, each
+    ending with its ``greedy.read``."""
     b = memory.shape[0]
     dev = memory.device
     dec = model.decoder
     eos = cfg.eos_token_id
+    sp = profiling.begin("greedy.decode", span_parent, batch=b, read_ns=0)
+    pre = profiling.child("greedy.prefill", sp)
     k_cross, v_cross = mm.compute_cross_kv(dec, cfg, memory)
     # One position more than tokens: the BOS pass writes position 0.
     cache = mm.init_cache(cfg, b, max_tokens + 1, k_cross, v_cross, memory_mask,
@@ -55,8 +65,14 @@ def greedy_decode(
     lengths = keep.long()
     done = (first == eos) | (lengths >= caps)
     last = torch.where(done, eos, first)
-    step = 1
-    while step < max_tokens and not bool(done.all()):
+    step, st = 1, pre  # st: the span whose read decides whether a step follows
+    while True:
+        stop = step >= max_tokens or profiling.timed_read(lambda: bool(done.all()), sp,
+                                                          "greedy.read", st)
+        profiling.end(st)
+        if stop:
+            break
+        st = profiling.child("greedy.step", sp)
         logits, cache, _ = mm.decoder_apply(dec, cfg, last[:, None], cache)
         nxt = logits[:, -1, :].argmax(dim=-1)
         is_eos = nxt == eos
@@ -67,4 +83,7 @@ def greedy_decode(
         done = done | is_eos | (lengths >= caps)
         last = torch.where(done, eos, nxt)
         step += 1
+    # Stopped at max_tokens, the last step was never read.
+    sp.enqueued = dev.type == "cuda" and step >= max_tokens
+    profiling.end(sp, decoder_calls=step)
     return GreedyResult(tokens, lengths)

@@ -43,9 +43,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import profiling
 from ..core.config import MoonshineArchConfig
 from ..core.device import resolve_device
-from ..ops.encoder_attention import encoder_attention_packed, encoder_attention_packed_sharded
+from ..ops.encoder_attention import (
+    K1_LAUNCHES,
+    encoder_attention_packed,
+    encoder_attention_packed_sharded,
+)
 from ..ops.int8_kv import attention_dm_q8, attention_dm_q8_with_weights, quantize_kv
 from ..ops.rotary import (
     apply_rotary,
@@ -461,11 +466,19 @@ def encode(
     lengths: torch.Tensor | None = None,
     attn_impl: str = "auto",
     mesh=None,
+    *,
+    span_parent: profiling.Span | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """audio [B, N] -> (memory [B, T, D], frame_mask [B, T])."""
+    """audio [B, N] -> (memory [B, T, D], frame_mask [B, T]).  Records a
+    coarse ``encode`` span (``batch``, ``samples``, ``k1_launches``) under
+    ``span_parent``, enqueued on CUDA."""
+    sp = profiling.begin("encode", span_parent, batch=audio.shape[0], samples=audio.shape[1])
+    k1 = profiling.counter(K1_LAUNCHES)
     feats, mask = frontend_apply(model.frontend, cfg, audio, lengths)
     memory = encoder_apply(model.encoder, cfg, feats, mask if lengths is not None else None,
                            attn_impl=attn_impl, mesh=mesh)
+    sp.enqueued = audio.device.type == "cuda"
+    profiling.end(sp, k1_launches=profiling.counter(K1_LAUNCHES) - k1)
     return memory, mask
 
 

@@ -35,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from ..core.config import StreamingConfig
 from ..core.device import resolve_device
 from ..ops.int8_kv import attention_dm_q8, dequantize_kv, quantize_kv
@@ -373,6 +374,9 @@ class ServiceUpdateOut(NamedTuple):
     state: BatchedStreamingState
     # tokens || count [S, max_seq_len + 1]: one host read fetches both.
     packed: torch.Tensor | None = None
+    # [S] int32 draft tokens the verify accepted (not read by the service,
+    # which finds the same count on the host).
+    n_accept: torch.Tensor | None = None
 
 
 def _with_packed(out: ServiceUpdateOut) -> ServiceUpdateOut:
@@ -418,23 +422,31 @@ def service_update_meta(
     enc_passes: int = 2,
     decode: bool = True,
     decode_mem_bucket: int | None = None,
+    span: profiling.Span | None = None,
 ) -> ServiceUpdateOut:
     """:func:`service_update` with a one-tensor control plane: ``meta``'s
     rows are (n_frames, reset, is_final, draft_len, budget, decode_mask),
-    one host-to-device copy per update instead of six."""
+    one host-to-device copy per update instead of six.  ``span``, the
+    service update's (its ``decoder_calls`` and ``read_ns`` set to 0 when
+    it opened), counts the call's decoder calls and blocked reads, and
+    holds its fine spans (``service.ingest``, ``service.verify``,
+    ``service.step``, ``service.read``)."""
     return _with_packed(_service_update_impl(
         model, cfg, state, chunk, meta[0], meta[1] != 0, meta[2] != 0, draft, meta[3],
-        meta[4], meta[5] != 0, mem_bucket, draft_cap, enc_passes, decode, decode_mem_bucket))
+        meta[4], meta[5] != 0, mem_bucket, draft_cap, enc_passes, decode, decode_mem_bucket,
+        span))
 
 
 def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingState,
                          chunk, n_frames, reset, is_final, draft, draft_len, budget,
                          decode_mask, mem_bucket: int, draft_cap: int, enc_passes: int,
-                         decode: bool, decode_mem_bucket: int | None = None) -> ServiceUpdateOut:
+                         decode: bool, decode_mem_bucket: int | None = None,
+                         span: profiling.Span | None = None) -> ServiceUpdateOut:
     # The decode phases (verify, greedy continuation) read only the first
     # decode_mem_bucket columns of the cross caches; the caller guarantees
     # that every stream's memory fits there after this update's encode.
     dmb = mem_bucket if decode_mem_bucket is None else min(decode_mem_bucket, mem_bucket)
+    ingest = profiling.child("service.ingest", span)
     state = _mask_reset(state, reset)
     state = _frontend(model, cfg, state, chunk, n_frames)
 
@@ -444,6 +456,7 @@ def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingSta
         stable = torch.clamp(state.feat_count - lookahead, min=0)
         n_new = torch.clamp(stable - state.enc_emitted, 0, ENC_STEP)
         state = _encode(model, cfg, state, n_new)
+    profiling.end(ingest)
 
     S = chunk.shape[0]
     dev = chunk.device
@@ -455,6 +468,7 @@ def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingSta
             counts=torch.zeros((S,), dtype=i32, device=dev), state=state)
 
     # ---- speculative verify (decoder reset: self cache from position 0) ----
+    verify = profiling.child("service.verify", span)
     draft = draft[:, :draft_cap].to(i32)
     zero_len = torch.zeros((S,), dtype=i32, device=dev)
     seq = torch.cat([torch.full((S, 1), cfg.bos_id, dtype=i32, device=dev), draft], dim=1)
@@ -482,9 +496,15 @@ def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingSta
     cache_len = 1 + n_accept  # [bos, accepted...]
     done = ~corr_is_token | (count >= eff_budget)
     last = correction
+    calls, st = 1, verify  # st: the span whose read decides whether a step follows
 
     # ---- greedy continuation over all lanes: one host read a step ----------
-    while bool((~done).any()):
+    while True:
+        more = profiling.timed_read(lambda: bool((~done).any()), span, "service.read", st)
+        profiling.end(st)
+        if not more:
+            break
+        st = profiling.child("service.step", span)
         lg = _decode_step_batch(model, cfg, last[:, None], cache_len, state, dmb)
         nxt = lg[:, -1].argmax(dim=-1).to(i32)
         act = ~done
@@ -498,4 +518,8 @@ def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingSta
         # unchanged cache_len row and is voided by not advancing.
         cache_len = torch.where(act, cache_len + 1, cache_len)
         last = torch.where(act, nxt, last)
-    return ServiceUpdateOut(tokens=tokens, counts=count, state=state._replace(cache_len=cache_len))
+        calls += 1
+    if span is not None:
+        span.attrs["decoder_calls"] += calls
+    return ServiceUpdateOut(tokens=tokens, counts=count, state=state._replace(cache_len=cache_len),
+                            n_accept=n_accept)

@@ -13,10 +13,10 @@ Both return fresh tensors, never views of their inputs: the decoder writes
 the self caches in place, so a view would let one beam's write land in
 another's row.  CPU tensors take the plain version (``index_select``);
 CUDA tensors launch the kernel (``csrc/beam_gather.cu``) and count the
-launch on the wrapper.  Neither falls back to the other.  The kernel
-reads ``idx`` on the card and traps on an index outside ``[0, N)``; the
-wrapper never reads the indices on the host, which would wait for the
-stream at every decode step.
+launch in the recorder's ``launches.<wrapper>``.  Neither falls back to
+the other.  The kernel reads ``idx`` on the card and traps on an index
+outside ``[0, N)``; the wrapper never reads the indices on the host,
+which would wait for the stream at every decode step.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from .. import profiling
 from . import _build
 
 KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8)  # the decoder caches' dtypes
@@ -70,7 +71,7 @@ def _kernel():
 
 def _launch(wrapper, a: torch.Tensor, b: torch.Tensor,
             idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel for ``wrapper`` and count the launch on it."""
+    """Launch the kernel for ``wrapper`` and count the launch under its name."""
     what = wrapper.__name__
     if a.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {a.device}")
@@ -92,7 +93,7 @@ def _launch(wrapper, a: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{what} launch failed with CUDA error {rc} "
                            f"(shape {tuple(a.shape)}, {a.dtype})")
-    wrapper.launches += 1
+    profiling.count("launches." + what)
     return out_a, out_b
 
 
@@ -120,6 +121,3 @@ def gather_scale_rows(
         return _gather_rows_torch(k_scale, v_scale, idx)
     return _launch(gather_scale_rows, k_scale, v_scale, idx)
 
-
-gather_kv_rows.launches = 0
-gather_scale_rows.launches = 0

@@ -43,8 +43,13 @@ import functools
 import torch
 import torch.distributed as dist
 
+from .. import profiling
 from ..parallel.mesh import MODEL_AXIS
 from . import _build
+
+# The recorder's launch counters of K1 and K2 (profiling.counter).
+K1_LAUNCHES = "launches.encoder_attention_packed"
+K2_LAUNCHES = "launches.encoder_attention"
 
 NEG_INF = -1e9
 MAX_HEAD_DIM = 128  # the kernels' k16 steps of Q.K^T, ceil(head_dim / 16), are at most 8
@@ -226,7 +231,7 @@ def encoder_attention_packed(
     """Packed-layout encoder attention; returns [B, T, H*hd] in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel and
-    count the launch in ``encoder_attention_packed.launches``.
+    count the launch in the recorder's ``launches.encoder_attention_packed``.
     """
     _check(q, kt, v, frame_mask, heads)
     _refuse_grad("encoder_attention_packed", q, kt, v)
@@ -236,11 +241,8 @@ def encoder_attention_packed(
         raise ValueError(f"no encoder attention for device {q.device}")
     b, t, d = q.shape
     out = _launch("encoder_attention_packed", q, kt, v, frame_mask, b, t, heads, d // heads)
-    encoder_attention_packed.launches += 1
+    profiling.count(K1_LAUNCHES)
     return out
-
-
-encoder_attention_packed.launches = 0
 
 
 def encoder_attention(
@@ -252,8 +254,8 @@ def encoder_attention(
     """Head-major encoder attention (K2); returns [B, T, H, hd] in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    reads [B, T, H, hd] in place, and count the launch in
-    ``encoder_attention.launches``.
+    reads [B, T, H, hd] in place, and count the launch in the recorder's
+    ``launches.encoder_attention``.
     """
     _check_hm(q, k, v, frame_mask)
     _refuse_grad("encoder_attention", q, k, v)
@@ -263,11 +265,8 @@ def encoder_attention(
         raise ValueError(f"no encoder attention for device {q.device}")
     b, t, h, hd = q.shape
     out = _launch("encoder_attention_hm", q, k, v, frame_mask, b, t, h, hd)
-    encoder_attention.launches += 1
+    profiling.count(K2_LAUNCHES)
     return out
-
-
-encoder_attention.launches = 0
 
 
 # -------------------------------------------------------------------------

@@ -116,19 +116,20 @@ class OfflineBackend:
         padded = np.zeros(n_bucket, np.float32)
         padded[:n_real] = audio[:n_real]
         lengths = torch.tensor([n_real], device=self.device)
-        # The run-log spans of the JAX package.  On CUDA the encode span ends
-        # once its kernels are enqueued; the decode span's host read of the
-        # lengths waits for both.
-        with profiling.log_run("encode", samples=n_bucket):
+        # On CUDA the encode span ends once its kernels are enqueued; the
+        # decode span's host read of the lengths waits for both.
+        with profiling.span("backend.encode", bucket_samples=n_bucket) as sp:
             memory, mask = mm.encode(
                 self.model, self.cfg, torch.from_numpy(padded)[None].to(self.device), lengths,
-                attn_impl="auto")
+                attn_impl="auto", span_parent=sp)
+            sp.enqueued = self.device.type == "cuda"
         duration = n_real / INTERNAL_SAMPLE_RATE
         cap = max(int(duration * self.max_tokens_per_second), 1)
         max_tokens = max(int(n_bucket / INTERNAL_SAMPLE_RATE * self.max_tokens_per_second), 8)
-        with profiling.log_run("decode", max_tokens=max_tokens):
+        with profiling.span("backend.decode", bucket_samples=n_bucket) as sp:
             res = greedy_decode(self.model, self.cfg, memory, mask, max_tokens=max_tokens,
-                                token_caps=torch.tensor([cap]), kv_int8=self.kv_int8)
+                                token_caps=torch.tensor([cap]), kv_int8=self.kv_int8,
+                                span_parent=sp)
             n = int(res.lengths[0])
         ids = res.tokens[0, :n].cpu().numpy()
         words = []
@@ -216,7 +217,8 @@ class StreamingBackend:
 
         offset = 0
         remaining = n_frames
-        with profiling.log_run("frontend", frames=n_frames):
+        with profiling.span("backend.frontend", frames=n_frames) as sp:
+            sp.enqueued = self.device.type == "cuda"
             samples = torch.from_numpy(np.ascontiguousarray(new[:n_frames * frame_len]))
             samples = samples.to(self.device)  # one copy per update
             for bucket in self._BUCKETS:
@@ -231,7 +233,8 @@ class StreamingBackend:
         # Stable-frame arithmetic on the host mirrors.
         stable = self._feat_host if is_final else max(0, self._feat_host - cfg.total_lookahead)
         n_new = max(stable - self._emitted_host, 0)
-        with profiling.log_run("encode_step"):
+        with profiling.span("backend.encode_step", frames=n_new) as sp:
+            sp.enqueued = self.device.type == "cuda"
             emitted = 0
             while emitted < n_new:
                 step = min(n_new - emitted, ms.ENC_STEP)
@@ -247,7 +250,7 @@ class StreamingBackend:
         duration = self._samples_processed / INTERNAL_SAMPLE_RATE
         cap = min(max(int(duration * self.max_tokens_per_second), 1), cfg.max_seq_len - 2)
         draft = (self._last_tokens if self.use_speculative else [])[:cfg.max_seq_len]
-        with profiling.log_run("decode_full", draft=len(draft)):
+        with profiling.span("backend.decode_full", draft=len(draft)):
             tokens, self._state = ms.decode_full_fused(
                 self.model, cfg, self._state, draft, cap,
                 mem_bucket=ms.mem_bucket_for(self._emitted_host))

@@ -22,6 +22,8 @@ greedy loop on the host, reading the device once a step: ``update_begin``
 returns once the device work is queued after the last of those reads, so
 ``update_end`` waits only for the last step's copy of the tokens.  A
 snapshot holds the state's tensors as CPU copies (numpy has no bfloat16).
+Each update records a ``service.update`` span in ``profiling``, opened by
+``update_begin`` and closed by ``update_end``.
 """
 
 from __future__ import annotations
@@ -59,9 +61,11 @@ class _PendingUpdate:
     """An update whose tokens have not been read yet (update_begin/update_end)."""
 
     out: object  # sb.ServiceUpdateOut
-    t0: float
+    span: profiling.Span  # the update's service.update span, closed by update_end
     is_final: np.ndarray
     decode_mask: np.ndarray
+    draft: np.ndarray  # [S, draft_cap] the drafts the verify was given
+    draft_len: np.ndarray
 
 
 @dataclass
@@ -87,6 +91,13 @@ class _Slot:
     stream_samples: int = 0
     # Audio not yet routed into a segment
     raw_buffer: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
+
+
+def _common_prefix(a: np.ndarray, b: np.ndarray) -> int:
+    """The number of leading elements ``a`` and ``b`` share."""
+    n = min(len(a), len(b))
+    differ = np.flatnonzero(a[:n] != b[:n])
+    return int(differ[0]) if len(differ) else n
 
 
 def _on(t: torch.Tensor, device: torch.device) -> bool:
@@ -229,11 +240,17 @@ class StreamingService:
         greedy decode are skipped and no events come out (segment finals
         wait for the next decode update); the unit of ServiceGovernor's
         overload backoff.
+
+        Opens the update's coarse ``service.update`` span, which
+        ``update_end`` closes; with fine spans on, ``service.plan`` covers
+        the slot loop, the mirror and the uploads.
         """
-        t0 = time.monotonic()
+        sp = profiling.begin("service.update", streams=self.S, decode=int(decode_tick),
+                             decoder_calls=0, read_ns=0)
         if self.vad is not None:
             self._run_vad_batched()
 
+        plan = profiling.child("service.plan", sp)
         S, F = self.S, self.F
         chunk = np.zeros((S, F * FRAME_LEN), np.float32)
         n_frames = np.zeros(S, np.int32)
@@ -315,48 +332,61 @@ class StreamingService:
             zeros_s = np.zeros(S, np.int32)
             meta_follow_dev = self._upload(pack_meta(zeros_s, zeros_s.astype(bool)))
             draft0_dev = self._upload(draft[:, : self.draft_buckets[0]])
+        profiling.end(plan)
+        sp.attrs.update(passes=passes, draft_bucket=cap, mem_bucket=dmb,
+                        draft_tokens=int(draft_len.sum()))
         first = True
         for _ in range(passes - 1):  # encode-only catch-up calls
-            with profiling.log_run("service_encode_catchup"):
-                out = sb.service_update_meta(
-                    self.params, self.cfg, self.state,
-                    chunk_dev if first else zeros_chunk_dev,
-                    meta_dev if first else meta_follow_dev,
-                    draft0_dev,
-                    mem_bucket=self.mem_bucket, draft_cap=self.draft_buckets[0],
-                    enc_passes=1, decode=False,
-                )
-            self.state = out.state
-            mirror_pass()
-            first = False
-        with profiling.log_run("service_update", streams=S, draft_bucket=cap, mem_bucket=dmb):
             out = sb.service_update_meta(
                 self.params, self.cfg, self.state,
                 chunk_dev if first else zeros_chunk_dev,
                 meta_dev if first else meta_follow_dev,
-                self._upload(draft[:, :cap]),
-                mem_bucket=self.mem_bucket, draft_cap=cap,
-                enc_passes=1, decode=decode_tick,
-                decode_mem_bucket=dmb if decode_tick else None,
+                draft0_dev,
+                mem_bucket=self.mem_bucket, draft_cap=self.draft_buckets[0],
+                enc_passes=1, decode=False, span=sp,
             )
+            self.state = out.state
+            mirror_pass()
+            first = False
+        out = sb.service_update_meta(
+            self.params, self.cfg, self.state,
+            chunk_dev if first else zeros_chunk_dev,
+            meta_dev if first else meta_follow_dev,
+            self._upload(draft[:, :cap]),
+            mem_bucket=self.mem_bucket, draft_cap=cap,
+            enc_passes=1, decode=decode_tick,
+            decode_mem_bucket=dmb if decode_tick else None, span=sp,
+        )
         mirror_pass()
         self.state = out.state
-        return _PendingUpdate(out=out, t0=t0, is_final=is_final, decode_mask=decode_mask)
+        return _PendingUpdate(out=out, span=sp, is_final=is_final, decode_mask=decode_mask,
+                              draft=draft, draft_len=draft_len)
 
     def update_end(self, pending: _PendingUpdate) -> list[StreamEvent]:
-        """Read an update's tokens and turn them into events."""
-        out, t0 = pending.out, pending.t0
+        """Read an update's tokens and turn them into events; closes the
+        update's span (with fine spans on, ``service.finish`` covers this)
+        with its ``accepted_tokens``: each slot's draft tokens that its new
+        hypothesis begins with, which is the count the verify accepted."""
+        out, sp = pending.out, pending.span
         is_final, decode_mask = pending.is_final, pending.decode_mask
+        finish = profiling.child("service.finish", sp)
+        t0 = time.perf_counter_ns()
         # One device-to-host copy fetches tokens || count.
         packed = out.packed.cpu().numpy()
+        t1 = time.perf_counter_ns()
+        sp.attrs["read_ns"] += t1 - t0
+        profiling.record("service.read", finish, t0, t1)
         tokens, counts = packed[:, :-1], packed[:, -1]
-        latency_ms = (time.monotonic() - t0) * 1000.0
+        latency_ms = (t1 - sp.start_ns) / 1e6
 
         events: list[StreamEvent] = []
+        accepted = 0
         for i, s in enumerate(self.slots):
             if not decode_mask[i]:
                 continue
-            toks = [int(t) for t in tokens[i, : int(counts[i])]]
+            new = tokens[i, : int(counts[i])]
+            accepted += _common_prefix(pending.draft[i, : pending.draft_len[i]], new)
+            toks = [int(t) for t in new]
             s.tokens = toks
             text = self.tokenizer.tokens_to_text(toks) if self.tokenizer else str(toks)
             final = bool(is_final[i])
@@ -370,6 +400,8 @@ class StreamingService:
                 s.last_text = text
             if final:
                 self._finish_segment(i)
+        profiling.end(finish)
+        profiling.end(sp, accepted_tokens=accepted)
         return events
 
     def warmup(self) -> float:

@@ -343,8 +343,9 @@ def test_vad_weights_transcribe_as_jax(catalog_cache, monkeypatch, tmp_path):
 
 def test_run_and_api_logs(catalog_cache, capsys):
     """log_model_run (no longer refused) prints each backend run with its
-    time, and log_api_calls each public call, as in the JAX package."""
-    profiling.stats.reset()
+    time, and log_api_calls each public call, as in the JAX package; the
+    recorder holds the backend's spans with the model's beneath them."""
+    profiling.clear()
     try:
         tt = tapi.Transcriber("base", "en", device="cpu").with_options(
             vad_threshold=0, log_model_run=True, log_api_calls=True).load()
@@ -353,8 +354,11 @@ def test_run_and_api_logs(catalog_cache, capsys):
         profiling.enable_device_run_log(False)
     err = capsys.readouterr().err
     assert "[api-call] transcribe(audio=array(16000,), sample_rate=16000)" in err
-    assert "[model-run] encode" in err and "[model-run] decode" in err
-    assert {"encode", "decode"} <= set(profiling.stats.snapshot())
+    assert "[model-run] backend.encode" in err and "[model-run] backend.decode" in err
+    recorded = {s.name: s for s in profiling.spans()}
+    assert {"backend.encode", "encode", "backend.decode", "greedy.decode"} <= set(recorded)
+    assert recorded["encode"].parent == recorded["backend.encode"].id
+    assert recorded["greedy.decode"].parent == recorded["backend.decode"].id
 
 
 def test_profiler_trace_writes_a_trace(tmp_path):

@@ -30,11 +30,10 @@ import torch_xla_reference
 from moonshine_tpu.core.config import MoonshineArchConfig
 from moonshine_tpu.decoding.beam import beam_decode as jax_beam
 from moonshine_tpu.models import moonshine as jm
-from moonshine_tpu_torch import weights
+from moonshine_tpu_torch import profiling, weights
 from moonshine_tpu_torch.core.config import MoonshineArchConfig as TorchArchConfig
 from moonshine_tpu_torch.decoding import beam
 from moonshine_tpu_torch.decoding.greedy import greedy_decode
-from moonshine_tpu_torch.ops import beam_gather as bg
 
 # The beamtest config of tests/test_beam.py.
 CFG = MoonshineArchConfig(
@@ -198,19 +197,24 @@ def test_beam1_matches_greedy(setup):
     np.testing.assert_array_equal(b.lengths.numpy(), g.lengths.numpy())
 
 
+def _gather_launches() -> tuple[int, int]:
+    return (profiling.counter("launches.gather_kv_rows"),
+            profiling.counter("launches.gather_scale_rows"))
+
+
 @pytest.mark.parametrize("kv_int8", [False, True])
 def test_gather_impls_agree(setup, kv_int8):
     """"auto" (the gather kernels' wrappers) and "xla" (index_select) give
     identical results: the gather is an exact copy either way.  On CPU
     tensors no kernel launches."""
     _, model, memory, mask = setup
-    before = (bg.gather_kv_rows.launches, bg.gather_scale_rows.launches)
+    before = _gather_launches()
     runs = [beam.beam_decode(model, TCFG, _t(memory), _t(mask), beam_size=3, max_tokens=8,
                              kv_int8=kv_int8, gather_impl=impl) for impl in ("auto", "xla")]
     for a, b in zip(runs[0][:3], runs[1][:3]):
         assert torch.equal(a, b)
     assert runs[0].steps == runs[1].steps
-    assert (bg.gather_kv_rows.launches, bg.gather_scale_rows.launches) == before
+    assert _gather_launches() == before
     with pytest.raises(ValueError, match="gather_impl"):
         beam.beam_decode(model, TCFG, _t(memory), _t(mask), gather_impl="pallas")
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from torch_threads import one_torch_thread  # noqa: F401
+from moonshine_tpu_torch import profiling
 from moonshine_tpu_torch.ops import beam_gather as bg
 
 
@@ -97,14 +98,19 @@ def test_outputs_are_fresh_tensors():
     assert a.abs().sum() == 0 and b.abs().sum() == 0
 
 
+def _gather_launches() -> tuple[int, int]:
+    return tuple(profiling.counter("launches." + fn.__name__)
+                 for fn in (bg.gather_kv_rows, bg.gather_scale_rows))
+
+
 def test_cpu_path_leaves_launch_counters():
     a, b = (torch.zeros(2, 4, 1, 2, 3) for _ in range(2))
     sa, sb = (torch.zeros(2, 4, 1, 3) for _ in range(2))
     idx = torch.tensor([1, 1, 0, 3], dtype=torch.int32)
-    before = (bg.gather_kv_rows.launches, bg.gather_scale_rows.launches)
+    before = _gather_launches()
     bg.gather_kv_rows(a, b, idx)
     bg.gather_scale_rows(sa, sb, idx)
-    assert (bg.gather_kv_rows.launches, bg.gather_scale_rows.launches) == before
+    assert _gather_launches() == before
 
 
 @pytest.mark.parametrize("bad", ["ndim", "shape", "dtype", "scale_dtype", "mixed_dtype",
@@ -163,10 +169,10 @@ def test_cuda_kernel_matches_plain(cuda_device, which, shape, dtype, kind):
     idx = torch.from_numpy(_parents(kind, shape[1], seed=5)).to(cuda_device)
     fn = bg.gather_kv_rows if which == "kv" else bg.gather_scale_rows
     for ix in (idx, idx.long()):
-        before = fn.launches
+        before = profiling.counter("launches." + fn.__name__)
         out_a, out_b = fn(a, b, ix)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1
+        assert profiling.counter("launches." + fn.__name__) == before + 1
         ref_a, ref_b = bg._gather_rows_torch(a, b, ix)
         assert torch.equal(out_a, ref_a) and torch.equal(out_b, ref_b)
         assert out_a.data_ptr() != a.data_ptr()

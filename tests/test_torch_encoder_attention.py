@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from torch_threads import one_torch_thread  # noqa: F401
+from moonshine_tpu_torch import profiling
 from moonshine_tpu_torch.ops import encoder_attention as ea
 
 F32 = dict(atol=2e-5, rtol=1e-4)
@@ -93,9 +94,9 @@ def test_plain_matches_pallas_row_without_valid_key():
 
 def test_cpu_path_leaves_launch_counter():
     q, kt, v = _inputs(3, 1, 9, 2, 8)
-    before = ea.encoder_attention_packed.launches
+    before = profiling.counter(ea.K1_LAUNCHES)
     ea.encoder_attention_packed(*(torch.from_numpy(x) for x in (q, kt, v)), None, 2)
-    assert ea.encoder_attention_packed.launches == before
+    assert profiling.counter(ea.K1_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "heads", "mask"])
@@ -128,10 +129,10 @@ def test_cuda_kernel_matches_plain(cuda_device, b, t, h, hd, dtype):
     lengths = torch.tensor([t] + [max(t // (i + 2), 1) for i in range(b - 2)] + [0])
     mask = (torch.arange(t)[None, :] < lengths[:, None]).to(cuda_device)
     for m in (None, mask):
-        before = ea.encoder_attention_packed.launches
+        before = profiling.counter(ea.K1_LAUNCHES)
         out = ea.encoder_attention_packed(q, kt, v, m, h)
         torch.cuda.synchronize()
-        assert ea.encoder_attention_packed.launches == before + 1
+        assert profiling.counter(ea.K1_LAUNCHES) == before + 1
         ref = ea._encoder_attention_packed_torch(q, kt, v, m, h)
         tol = F32_KERNEL if dtype == torch.float32 else BF16_KERNEL
         torch.testing.assert_close(out.float(), ref.float(), **tol)
@@ -205,10 +206,10 @@ def test_hm_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q, k, v = (x.flatten(2) for x in (q, k, v))
     else:
         mask = mask[:, :8]
-    before = ea.encoder_attention.launches
+    before = profiling.counter(ea.K2_LAUNCHES)
     with pytest.raises((ValueError, TypeError)):
         ea.encoder_attention(q, k, v, mask)
-    assert ea.encoder_attention.launches == before
+    assert profiling.counter(ea.K2_LAUNCHES) == before
 
 
 @pytest.mark.cuda
@@ -225,10 +226,10 @@ def test_cuda_hm_kernel_matches_plain(cuda_device, b, t, h, hd, dtype):
     lengths = torch.tensor([t] + [max(t // (i + 2), 1) for i in range(b - 2)] + [0])
     mask = (torch.arange(t)[None, :] < lengths[:, None]).to(cuda_device)
     for m in (None, mask):
-        before = ea.encoder_attention.launches
+        before = profiling.counter(ea.K2_LAUNCHES)
         out = ea.encoder_attention(q, k, v, m)
         torch.cuda.synchronize()
-        assert ea.encoder_attention.launches == before + 1
+        assert profiling.counter(ea.K2_LAUNCHES) == before + 1
         ref = ea._encoder_attention_torch(q, k, v, m)
         tol = F32_KERNEL if dtype == torch.float32 else BF16_KERNEL
         torch.testing.assert_close(out.float(), ref.float(), **tol)
@@ -259,10 +260,10 @@ def test_wrapper_refuses_t_beyond_max_frames(kernel, dtype):
     hd, h = 52, 1
     limit = ea.max_frames(hd, dtype)
     if kernel == "packed":
-        counter, check = ea.encoder_attention_packed, ea._check
+        fn, check, counter = ea.encoder_attention_packed, ea._check, ea.K1_LAUNCHES
     else:
-        counter, check = ea.encoder_attention, ea._check_hm
-    before = counter.launches
+        fn, check, counter = ea.encoder_attention, ea._check_hm, ea.K2_LAUNCHES
+    before = profiling.counter(counter)
     for t in (limit, limit + 1):
         if kernel == "packed":
             q = torch.zeros(1, 1, h * hd, dtype=dtype).expand(1, t, h * hd)
@@ -272,12 +273,12 @@ def test_wrapper_refuses_t_beyond_max_frames(kernel, dtype):
             args = (q, q, q, None)
         if t > limit:
             with pytest.raises(ValueError, match="exceeds"):
-                counter(*args)
+                fn(*args)
         else:
             check(*args)
             if t * t <= 2**24:
-                assert counter(*args).shape[1] == t
-    assert counter.launches == before
+                assert fn(*args).shape[1] == t
+    assert profiling.counter(counter) == before
 
 
 def _card_inputs(kernel, b, t, h, hd, dtype, seed):

@@ -5,8 +5,8 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout, holds each kernel against its plain PyTorch
-version on the card (K1 and K2 also: a batch row alone gives the bits it
-gets in a batch, and every bf16 and float32 build of them holds tensor-core
+version on the card (K1 to K5; K1 and K2 also: a batch row alone gives the
+bits it gets in a batch, and every bf16 and float32 build of them holds tensor-core
 and cp.async instructions, read with cuobjdump), times it beside its bound
 and PyTorch's own call for the same function, drives the offline
 transcription path through ``Transcriber(model="base")`` with random
@@ -39,7 +39,9 @@ latencies, memory), ``[serving reference]`` (a float32 service's events
 and states on the card against the CPU's), ``[serving vad]`` (TinyVad on
 an in-memory graph of TinyVadCNN's contract, card against CPU, inside a
 service) and ``[streaming bench]`` (``eval/streaming_bench.run_bench``);
-none of them runs a kernel of the repository. Then speaker identification
+the int8-KV ones run K5 (the fused int8-KV decode attention) twice a
+decoder layer a decoder call, and ``[serving]`` checks that count against
+the ``service.update`` spans. Then speaker identification
 and spelling: ``[speakers and spelling]`` (``Transcriber(model="base")
 .with_options(identify_speakers=True)`` over a 60 s synthetic two-speaker
 conversation in 0.5 s chunks; the diarizer's activities, embeddings and
@@ -588,6 +590,146 @@ def phase_gather_times(bg) -> dict:
     return out
 
 
+# K5 (ops/int8_kv.attention_dm_q8 on the card) against the plain einsums:
+# the relative RMS error over the output and the largest element error over
+# the output's largest magnitude (tests/test_torch_int8_attention.py gives
+# the reasons: the same rounding places, only the order of float32 sums
+# differs).
+Q8_TOL = {torch.bfloat16: (2.0**-8, 2.0**-7), torch.float32: (1e-5, 1e-5)}
+# (label, B, s, H, hd, T, the cache buffer's columns, mask): the cells'
+# decode shapes (Base b64: self cache of 41 columns, 256 memory frames; the
+# service: self cache of 448, the 3,200 and 2,048 memory buckets as slices
+# of the 3,200-column buffer) and the service's verify at the cell's draft
+# cap (128 + 1 rows).
+Q8_SHAPES = [
+    ("b64 self", 64, 1, 8, 52, 41, 41, "causal"),
+    ("b64 cross", 64, 1, 8, 52, 256, 256, "memory"),
+    ("serve self", 32, 1, 11, 64, 448, 448, "causal"),
+    ("serve cross 3200", 32, 1, 11, 64, 3200, 3200, "memory"),
+    ("serve cross 2048", 32, 1, 11, 64, 2048, 3200, "memory"),
+    ("verify self", 32, 129, 11, 64, 448, 448, "causal"),
+    ("verify cross", 32, 129, 11, 64, 3200, 3200, "memory"),
+]
+
+
+def q8_count() -> int:
+    from moonshine_tpu_torch import profiling
+    from moonshine_tpu_torch.ops.int8_kv import Q8_LAUNCHES
+
+    return profiling.counter(Q8_LAUNCHES)
+
+
+def q8_inputs(b, s, h, hd, t, cols, mask_kind, dtype, seed):
+    """q and int8 caches quantized from normal values on the card (the
+    first T columns of a ``cols``-column buffer), and a bool mask: causal
+    over the cache's last s positions [1, 1, s, T], or a memory mask
+    [B, 1, 1, T] of lengths from T down to T/2."""
+    from moonshine_tpu_torch.ops.int8_kv import quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, h, hd), device="cuda", generator=g).to(dtype)
+    caches = []
+    for spread in (3.0, 1.0):
+        x = torch.randn((b, h, hd, cols), device="cuda", generator=g) * spread
+        xq, xs = quantize_kv(x)
+        caches += [xq[..., :t], xs[..., :t]]
+    key = torch.arange(t, device="cuda")
+    if mask_kind == "causal":
+        mask = (key[None, :] <= t - s + torch.arange(s, device="cuda")[:, None])[None, None]
+    else:
+        lengths = t - torch.arange(b, device="cuda") * t // (2 * b)
+        mask = (key[None, :] < lengths[:, None])[:, None, None, :]
+    kq, ks, vq, vs = caches
+    return q, kq, ks, vq, vs, mask
+
+
+def q8_errors(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    o, r = out.float(), ref.float()
+    if not bool(torch.isfinite(o).all()):
+        return float("inf"), float("inf")
+    return (float((o - r).pow(2).mean().sqrt() / r.pow(2).mean().sqrt()),
+            float((o - r).abs().max() / r.abs().max()))
+
+
+def phase_q8_vs_plain(q8) -> float:
+    """K5 against the plain version on the same card tensors at every shape
+    of Q8_SHAPES, in bf16 and float32, within Q8_TOL; returns the largest
+    relative RMS error."""
+    worst = 0.0
+    for label, b, s, h, hd, t, cols, mask_kind in Q8_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = q8_inputs(b, s, h, hd, t, cols, mask_kind, dtype, seed=b + s + t)
+            before = q8_count()
+            out = q8.attention_dm_q8(*args)
+            torch.cuda.synchronize()
+            ref = q8.attention_dm_q8_with_weights(*args)[0]
+            rms, elem = q8_errors(out, ref)
+            worst = max(worst, rms)
+            ok = q8_count() == before + 1 and rms <= Q8_TOL[dtype][0] and elem <= Q8_TOL[dtype][1]
+            log(f"  K5 {label} B={b} s={s} H={h} hd={hd} T={t} {str(dtype)[6:]}: relative RMS "
+                f"{rms:.3g}, largest {elem:.3g} of max|plain| (limits {Q8_TOL[dtype]}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"K5 disagrees with its plain version at {label} {dtype}")
+    return worst
+
+
+def q8_bound(args) -> dict:
+    """The least time of one K5 call: K and V (int8) and their scales read
+    once over the T columns it attends, q and the mask read and out written
+    once, against its two products of 2*B*H*s*T*hd operations each at the
+    I/O dtype's tensor-core rate (PEAK_FLOPS)."""
+    q, kq, ks, _, _, mask = args
+    b, s, h, hd = q.shape
+    t = kq.shape[3]
+    elt = q.element_size()
+    bytes_moved = 2 * kq.numel() + 2 * 4 * ks.numel() + 2 * q.numel() * elt + mask.numel()
+    flops = 4 * b * h * s * t * hd
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return {"bytes": bytes_moved, "flops": flops, "bytes_ms": t_bytes, "operations_ms": t_flops,
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def phase_q8_times(q8) -> dict:
+    """K5, its plain version and the yardstick (SDPA on the bf16 cache
+    dequantized beforehand, which the port never calls) at every shape of
+    Q8_SHAPES in bf16, beside the bound.  Before each timed call the card
+    reads twice its L2 and then spins, as for K3 and K4, so the caches come
+    from device memory and the time is the device's alone."""
+    from moonshine_tpu_torch.ops.int8_kv import dequantize_kv
+
+    scratch = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def before():
+        scratch.sum()
+        torch.cuda._sleep(2_000_000)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for label, b, s, h, hd, t, cols, mask_kind in Q8_SHAPES:
+        dtype = torch.bfloat16
+        args = q8_inputs(b, s, h, hd, t, cols, mask_kind, dtype, seed=7)
+        q, kq, ks, vq, vs, mask = args
+        kernel_ms = cuda_time_ms(lambda: q8.attention_dm_q8(*args), before=before)
+        plain_ms = cuda_time_ms(lambda: q8.attention_dm_q8_with_weights(*args)[0], before=before)
+        qh = q.transpose(1, 2)
+        kd = dequantize_kv(kq, ks, dtype).transpose(2, 3)
+        vd = dequantize_kv(vq, vs, dtype).transpose(2, 3)
+        library_ms = cuda_time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask), before=before)
+        del kd, vd
+        res = {"shape": [b, s, h, hd, t], "buffer_columns": cols, "dtype": "bfloat16",
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               **q8_bound(args)}
+        log(f"  K5 {label} B={b} s={s} H={h} hd={hd} T={t} bf16: kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA on the bf16 cache {library_ms:.4f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {res['bytes'] / 1e6:.1f} MB, "
+            f"{res['flops'] / 1e9:.2f} GFLOP) -> {res['bound_ms'] / kernel_ms:.1%} of bound")
+        out[label] = res
+    return out
+
+
 def synthetic_clip(seconds: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     t = np.arange(int(SAMPLE_RATE * seconds)) / SAMPLE_RATE
@@ -774,14 +916,32 @@ def check_decode(memory, res, cfg, batch: int, max_tokens: int, what: str) -> No
         raise SystemExit(f"{what} produced token ids outside the vocabulary")
 
 
+def q8_per_decoder_call(spans, layers: int, what: str) -> float:
+    """K5's launches a decoder call over ``spans`` (``greedy.decode`` or
+    ``service.update``, their ``q8_launches`` and ``decoder_calls``); each
+    span must show two a layer a call (self and cross attention)."""
+    calls = sum(sp.attrs["decoder_calls"] for sp in spans)
+    launched = sum(sp.attrs["q8_launches"] for sp in spans)
+    if not calls or any(sp.attrs["q8_launches"] != 2 * layers * sp.attrs["decoder_calls"]
+                        for sp in spans):
+        raise SystemExit(f"K5 launched {launched} times over {calls} decoder calls of {what}, "
+                         f"not {2 * layers} a call")
+    return launched / calls
+
+
 def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
     """encode + greedy_decode at the bench configuration (batched_workload,
-    with w8a8 weights if asked): one warm-up and the best of 3."""
+    with w8a8 weights if asked): one warm-up and the best of 3.  K5 must
+    launch twice a decoder layer a decoder call, in the recorder's counter
+    and in each ``greedy.decode`` span's ``q8_launches``."""
+    from moonshine_tpu_torch import profiling
+
     encode, decode, max_tokens = batched_workload(cfg, batch, w8a8)
     launches_start = launch_count(ea.encoder_attention_packed)
     memory, res, _, _ = run_once(encode, decode)  # warm-up
     check_decode(memory, res, cfg, batch, max_tokens, "batched decode")
     launches0 = launch_count(ea.encoder_attention_packed)
+    q8_0 = q8_count()
     walls, encs, decs = [], [], []
     for _ in range(3):
         _, res, enc_s, dec_s = run_once(encode, decode)
@@ -791,6 +951,10 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
     per_encode = (launch_count(ea.encoder_attention_packed) - launches0) / 3
     if per_encode != cfg.encoder_layers:
         raise SystemExit(f"K1 launched {per_encode} times per encode, not {cfg.encoder_layers}")
+    decodes = profiling.spans("greedy.decode")[-3:]
+    q8_per_call = q8_per_decoder_call(decodes, cfg.decoder_layers, "the batched decode")
+    if q8_count() - q8_0 != sum(sp.attrs["q8_launches"] for sp in decodes):
+        raise SystemExit("K5's counter and the greedy.decode spans' q8_launches disagree")
     best = min(walls)
     seconds = BATCHED_SECONDS
     out = {"batch": batch, "seconds": seconds, "max_tokens": max_tokens,
@@ -799,12 +963,15 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
            "mean_tokens": float(res.lengths.float().mean()),
            "k1_launches_per_encode": per_encode,
            "k1_launches": launch_count(ea.encoder_attention_packed) - launches_start, "w8a8": w8a8,
+           "q8_launches_per_decoder_call": q8_per_call,
+           "decoder_calls": [sp.attrs["decoder_calls"] for sp in decodes],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  B={batch} x {seconds} s (T={out['frames']}), {max_tokens} tokens, bf16, int8 KV"
         f"{', w8a8 weights' if w8a8 else ''}: "
         f"best {best:.4f} s (encode {min(encs):.4f} s, decode {min(decs):.4f} s) -> "
         f"{out['audio_s_per_s']:.2f} audio-s/s on {card}; {per_encode:.0f} K1 launches per "
-        f"encode; mean tokens {out['mean_tokens']:.1f}")
+        f"encode, {q8_per_call:.0f} K5 launches per decoder call; mean tokens "
+        f"{out['mean_tokens']:.1f}")
     return out
 
 
@@ -1545,14 +1712,21 @@ def zero_launch_count(fn) -> None:
 
 
 def kernel_launches(ea, bg) -> dict:
-    return {c.__name__: launch_count(c) for c in (ea.encoder_attention_packed, ea.encoder_attention,
-                                                  bg.gather_kv_rows, bg.gather_scale_rows)}
+    """K1-K4's launches by wrapper name, and K5's as ``int8_attention``."""
+    counts = {c.__name__: launch_count(c) for c in (ea.encoder_attention_packed,
+                                                    ea.encoder_attention, bg.gather_kv_rows,
+                                                    bg.gather_scale_rows)}
+    return {**counts, "int8_attention": q8_count()}
 
 
 def reset_launches(ea, bg) -> None:
+    from moonshine_tpu_torch import profiling
+    from moonshine_tpu_torch.ops.int8_kv import Q8_LAUNCHES
+
     for c in (ea.encoder_attention_packed, ea.encoder_attention, bg.gather_kv_rows,
               bg.gather_scale_rows):
         zero_launch_count(c)
+    profiling.reset_counter(Q8_LAUNCHES)
 
 
 def phase_serving(card: str) -> dict:
@@ -1560,6 +1734,7 @@ def phase_serving(card: str) -> dict:
     streams in 2 cohorts through ShardedStreamingService, bf16, int8 KV,
     SERVING_UPDATES update periods of 0.64 s, each cohort ticked in turn
     after its slots are fed (bench.py's timed loop)."""
+    from moonshine_tpu_torch import profiling
     from moonshine_tpu_torch.core.config import STREAMING_ARCHS
     from moonshine_tpu_torch.models import streaming_batch as sb
 
@@ -1569,6 +1744,7 @@ def phase_serving(card: str) -> dict:
     t_setup = time.perf_counter()
     svc, feed, warmup_s = serving_workload(S, K)
     setup_s = time.perf_counter() - t_setup
+    t_window = time.perf_counter_ns()
     step = SERVING_KW["update_frames"] * 80
     per = S // K
     update_ms, final_ms, events_n = [], [], 0
@@ -1585,6 +1761,10 @@ def phase_serving(card: str) -> dict:
     wall = time.perf_counter() - t0
     audio_s = S * SERVING_UPDATES * step / SAMPLE_RATE
     peak = torch.cuda.max_memory_allocated()
+    updates = [sp for sp in profiling.spans("service.update")
+               if sp.start_ns >= t_window and sp.attrs["decode"]]
+    q8_per_call = q8_per_decoder_call(updates, STREAMING_ARCHS["medium_streaming"].depth,
+                                      "the service's decoding updates")
     # The state's bytes as its shapes give them, against the allocator's
     # count for one more cohort's state allocated alone.
     reckoned = state_bytes(svc.cohorts[0].state)
@@ -1600,7 +1780,9 @@ def phase_serving(card: str) -> dict:
            "update_ms_p95": float(np.percentile(update_ms, 95)),
            "final_ms_p50": float(np.percentile(final_ms, 50)) if final_ms else None,
            "n_finals": len(final_ms), "events": events_n, "peak_bytes": peak,
-           "state_bytes_per_cohort": reckoned, "state_bytes_allocated": allocated}
+           "state_bytes_per_cohort": reckoned, "state_bytes_allocated": allocated,
+           "q8_launches_per_decoder_call": q8_per_call,
+           "decoder_calls": [sp.attrs["decoder_calls"] for sp in updates]}
     log(f"  cut: {SERVING_UPDATES} update periods (the bench runs 40); the stagger's pre-fill "
         "drained with ingest-only updates (the bench decodes them)")
     final_p50 = "none" if not final_ms else f"{out['final_ms_p50']:.1f} ms"
@@ -1608,7 +1790,8 @@ def phase_serving(card: str) -> dict:
         f"{warmup_s:.2f} s (set-up {setup_s:.2f} s); {out['audio_s_per_s']:.2f} audio-s/s; "
         f"update wall p50 {out['update_ms_p50']:.1f} ms, p95 {out['update_ms_p95']:.1f} ms; "
         f"final-update latency p50 {final_p50}; {len(final_ms)} finals, {events_n} events; "
-        f"peak allocated {peak / 1e9:.3f} GB on {card}")
+        f"peak allocated {peak / 1e9:.3f} GB on {card}; {q8_per_call:.0f} K5 launches per "
+        f"decoder call over {len(updates)} decoding updates")
     log("  state per cohort of " + f"{per} streams: " + ", ".join(
         f"{k} {v / 1e6:.1f} MB" for k, v in reckoned.items())
         + f"; the allocator took {allocated / 1e6:.1f} MB for one more, on {card}")
@@ -4468,6 +4651,7 @@ def main() -> int:
     from moonshine_tpu_torch.ops import _build
     from moonshine_tpu_torch.ops import beam_gather as bg
     from moonshine_tpu_torch.ops import encoder_attention as ea
+    from moonshine_tpu_torch.ops import int8_kv as q8
 
     t_start = time.perf_counter()
     card = card_line()
@@ -4490,6 +4674,8 @@ def main() -> int:
     batch_independence = phase_batch_independence(ea)
     log("[kernel vs plain] K3, K4")
     gather_err = phase_gather_vs_plain(bg)
+    log("[kernel vs plain] K5")
+    q8_err = phase_q8_vs_plain(q8)
     log("[kernel SASS] K1, K2")
     sass = phase_sass(_build)
     log("[kernel times] K1")
@@ -4500,6 +4686,8 @@ def main() -> int:
     f32_times = phase_f32_times(ea)
     log("[kernel times] K3, K4")
     gather_times = phase_gather_times(bg)
+    log("[kernel times] K5")
+    q8_times = phase_q8_times(q8)
 
     with tempfile.TemporaryDirectory() as tmp:
         tok_path = os.path.join(tmp, "tokenizer.bin")
@@ -4547,7 +4735,7 @@ def main() -> int:
         streaming = phase_streaming(tok_path, card)
         log("[streaming reference]")
         streaming_ref = phase_streaming_reference(STREAMING_ARCHS["medium_streaming"])
-        # The service's paths run no kernel of the repository (the JAX
+        # The service's paths run no kernel of the JAX package's (the JAX
         # service is XLA code): each one's counts are read over its own run.
         serving_launches = {}
         log("[serving] ShardedStreamingService, the bench's headline configuration")
@@ -4776,10 +4964,25 @@ def main() -> int:
                      beam["launches"]["gather_scale_rows"], gather_err, k4,
                      {"launches_by_path": {"batched beam": beam["launches"]["gather_scale_rows"],
                                            **on_counted_paths("gather_scale_rows")}})]
+    q8_main = q8_times["serve cross 3200"]
+    kernels.append({
+        "name": "attention_dm_q8", "route": "cuda",
+        "source": "moonshine_tpu_torch/csrc/int8_attention.cu",
+        "replaces": "none: moonshine_tpu/ops/int8_kv.py attention_dm_q8 is XLA code",
+        "launches_per_decoder_call": {
+            "batched offline decode": batched["q8_launches_per_decoder_call"],
+            "w8a8 batched": w8a8_batched["q8_launches_per_decoder_call"],
+            "serving": serving["q8_launches_per_decoder_call"]},
+        "launches_by_path": on_counted_paths("int8_attention"),
+        "max_rel_rms_err": q8_err,
+        "tol": {k: list(Q8_TOL[getattr(torch, k)]) for k in ("float32", "bfloat16")},
+        "shape": q8_main["shape"], "ms": q8_main["kernel_ms"], "kernel_ms": q8_main["kernel_ms"],
+        "plain_ms": q8_main["plain_ms"], "library_ms": q8_main["library_ms"],
+        "bound_ms": q8_main["bound_ms"], "bound_by": q8_main["bound_by"], "shapes": q8_times})
     record = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "kernel_times": times, "hm_times": hm_times, "f32_times": f32_times,
               "batch_independence": batch_independence, "sass": sass,
-              "gather_times": gather_times,
+              "gather_times": gather_times, "q8_times": q8_times,
               "main_path": main_path, "reference_check": ref, "word_timestamps": words,
               "beam_reference_check": beam_ref, "speculative_reference": spec_ref,
               "batched": batched, "beam": beam, "sharded": sharded,

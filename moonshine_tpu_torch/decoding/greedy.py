@@ -17,6 +17,7 @@ import torch
 from .. import profiling
 from ..core.config import MoonshineArchConfig
 from ..models import moonshine as mm
+from ..ops.int8_kv import Q8_LAUNCHES
 
 
 class GreedyResult(NamedTuple):
@@ -37,7 +38,8 @@ def greedy_decode(
     span_parent: profiling.Span | None = None,
 ) -> GreedyResult:
     """Records a coarse ``greedy.decode`` span (``batch``, ``decoder_calls``,
-    ``read_ns``) under ``span_parent``; with fine spans on, a
+    ``read_ns``, ``q8_launches``: K5's launches in the call) under
+    ``span_parent``; with fine spans on, a
     ``greedy.prefill`` and a ``greedy.step`` a decoder call under it, each
     ending with its ``greedy.read``."""
     b = memory.shape[0]
@@ -45,6 +47,7 @@ def greedy_decode(
     dec = model.decoder
     eos = cfg.eos_token_id
     sp = profiling.begin("greedy.decode", span_parent, batch=b, read_ns=0)
+    q8 = profiling.counter(Q8_LAUNCHES)
     pre = profiling.child("greedy.prefill", sp)
     k_cross, v_cross = mm.compute_cross_kv(dec, cfg, memory)
     # One position more than tokens: the BOS pass writes position 0.
@@ -85,5 +88,5 @@ def greedy_decode(
         step += 1
     # Stopped at max_tokens, the last step was never read.
     sp.enqueued = dev.type == "cuda" and step >= max_tokens
-    profiling.end(sp, decoder_calls=step)
+    profiling.end(sp, decoder_calls=step, q8_launches=profiling.counter(Q8_LAUNCHES) - q8)
     return GreedyResult(tokens, lengths)

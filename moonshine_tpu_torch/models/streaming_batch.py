@@ -38,7 +38,7 @@ import torch
 from .. import profiling
 from ..core.config import StreamingConfig
 from ..core.device import resolve_device
-from ..ops.int8_kv import attention_dm_q8, dequantize_kv, quantize_kv
+from ..ops.int8_kv import Q8_LAUNCHES, attention_dm_q8, dequantize_kv, quantize_kv
 from ..ops.rotary import apply_rotary, rotary_tables
 from .layers import ACTIVATIONS, conv1d, dense, layer_norm
 from .moonshine import _attention_dm, _split_heads
@@ -427,9 +427,9 @@ def service_update_meta(
     """:func:`service_update` with a one-tensor control plane: ``meta``'s
     rows are (n_frames, reset, is_final, draft_len, budget, decode_mask),
     one host-to-device copy per update instead of six.  ``span``, the
-    service update's (its ``decoder_calls`` and ``read_ns`` set to 0 when
-    it opened), counts the call's decoder calls and blocked reads, and
-    holds its fine spans (``service.ingest``, ``service.verify``,
+    service update's (its ``decoder_calls``, ``read_ns`` and
+    ``q8_launches`` set to 0 when it opened), counts the call's decoder
+    calls, blocked reads and K5 launches, and holds its fine spans (``service.ingest``, ``service.verify``,
     ``service.step``, ``service.read``)."""
     return _with_packed(_service_update_impl(
         model, cfg, state, chunk, meta[0], meta[1] != 0, meta[2] != 0, draft, meta[3],
@@ -446,6 +446,7 @@ def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingSta
     # decode_mem_bucket columns of the cross caches; the caller guarantees
     # that every stream's memory fits there after this update's encode.
     dmb = mem_bucket if decode_mem_bucket is None else min(decode_mem_bucket, mem_bucket)
+    q8 = profiling.counter(Q8_LAUNCHES)
     ingest = profiling.child("service.ingest", span)
     state = _mask_reset(state, reset)
     state = _frontend(model, cfg, state, chunk, n_frames)
@@ -521,5 +522,6 @@ def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingSta
         calls += 1
     if span is not None:
         span.attrs["decoder_calls"] += calls
+        span.attrs["q8_launches"] += profiling.counter(Q8_LAUNCHES) - q8
     return ServiceUpdateOut(tokens=tokens, counts=count, state=state._replace(cache_len=cache_len),
                             n_accept=n_accept)

@@ -22,8 +22,8 @@ of ``chip_smoke.py [serving]`` (``medium_streaming``, bf16, int8 KV, 0.64 s
 updates, 15 s segments, the bench's staggered pre-fill): after three
 untraced decoding updates, one decoding update and one ingest-only update,
 each with its decoder calls counted, the launches a decoder call and the
-share of device time in dtype copies (``direct_copy_kernel``: mostly the
-float upcasts of the int8 caches in ``ops/int8_kv.attention_dm_q8``).
+share of device time in dtype copies (``direct_copy_kernel``; the int8
+caches are read in place by K5, ``ops/int8_kv.attention_dm_q8``).
 ``diarizer`` traces one analysis step of ``chip_smoke.py [speakers and
 spelling]``'s diarizer (the API's seeds; 2 s of a synthetic two-speaker
 conversation after 30 s untraced: two 10 s windows segmented, their

@@ -600,7 +600,9 @@ Q8_TOL = {torch.bfloat16: (2.0**-8, 2.0**-7), torch.float32: (1e-5, 1e-5)}
 # decode shapes (Base b64: self cache of 41 columns, 256 memory frames; the
 # service: self cache of 448, the 3,200 and 2,048 memory buckets as slices
 # of the 3,200-column buffer) and the service's verify at the cell's draft
-# cap (128 + 1 rows).
+# cap (128 + 1 rows); Canary-1B-Flash's decode at B=128, 8 heads of 128: self
+# attention over a 170-column cache, cross attention over the 513 frames of
+# a 40.96 s bucket, each at s=1 and at the 5-token prompt's prefill.
 Q8_SHAPES = [
     ("b64 self", 64, 1, 8, 52, 41, 41, "causal"),
     ("b64 cross", 64, 1, 8, 52, 256, 256, "memory"),
@@ -609,6 +611,10 @@ Q8_SHAPES = [
     ("serve cross 2048", 32, 1, 11, 64, 2048, 3200, "memory"),
     ("verify self", 32, 129, 11, 64, 448, 448, "causal"),
     ("verify cross", 32, 129, 11, 64, 3200, 3200, "memory"),
+    ("canary self", 128, 1, 8, 128, 170, 170, "causal"),
+    ("canary cross", 128, 1, 8, 128, 513, 513, "memory"),
+    ("canary prefill self", 128, 5, 8, 128, 170, 170, "causal"),
+    ("canary prefill cross", 128, 5, 8, 128, 513, 513, "memory"),
 ]
 
 

@@ -20,7 +20,10 @@ offline models, a streaming checkpoint directory or ``.safetensors`` for
 the streaming ones), from the catalog (``<cache>/<model>-<language>/``), or
 at random from ``seed``.  The tokenizer comes from ``tokenizer_path=``, the
 catalog, or the catalog's default tokenizer.  Both model families run:
-the offline models (``ARCHS``) and the streaming ones (``STREAMING_ARCHS``).
+the offline models (``ARCHS``, and Canary: ``model="canary-1b-flash"`` or a
+``models.canary.CanaryArchConfig``) and the streaming ones
+(``STREAMING_ARCHS``).  A Canary model comes from ``with_params`` or from
+``seed``: its checkpoint import is not written yet.
 Word timestamps (``with_options(word_timestamps=True)``) come from the
 decoder's cross-attention.  ``vad_weights=`` names a TinyVadCNN ONNX
 export, which then gives the VAD's speech probabilities (as long as the
@@ -51,6 +54,7 @@ from .core.config import (
 from .core.device import resolve_device
 from .core.tokenizer import BinTokenizer
 from .core.types import Transcript
+from .models.canary import CANARY_1B_FLASH, CanaryArchConfig
 from .pipeline.transcriber import Stream
 from .pipeline.transcriber import Transcriber as _PipelineTranscriber
 from .pipeline.transcriber import TranscriptEventListener  # noqa: F401  (re-export)
@@ -61,7 +65,7 @@ class Transcriber:
 
     def __init__(
         self,
-        model: str | MoonshineArchConfig | StreamingConfig = "tiny",
+        model: str | MoonshineArchConfig | StreamingConfig | CanaryArchConfig = "tiny",
         language: str = "en",
         weights: str | Path | None = None,
         tokenizer_path: str | Path | None = None,
@@ -71,7 +75,8 @@ class Transcriber:
         *,
         device: str | torch.device | None = None,
     ):
-        # ``model`` is an ARCHS/STREAMING_ARCHS key or a config instance.
+        # ``model`` is an ARCHS/STREAMING_ARCHS key, "canary-1b-flash" or a
+        # config instance.
         self._model = model
         self._language = language
         self._weights = weights
@@ -97,8 +102,8 @@ class Transcriber:
         return self
 
     def with_params(self, params) -> "Transcriber":
-        """Use an in-memory model (a ``models.moonshine.Moonshine`` or a
-        ``models.streaming.StreamingMoonshine``)."""
+        """Use an in-memory model (a ``models.moonshine.Moonshine``, a
+        ``models.canary.Canary`` or a ``models.streaming.StreamingMoonshine``)."""
         self._params = params
         return self
 
@@ -114,9 +119,13 @@ class Transcriber:
             return self._model in STREAMING_ARCHS
         return isinstance(self._model, StreamingConfig)
 
+    def _is_canary(self) -> bool:
+        return isinstance(self._model, CanaryArchConfig) or self._model == CANARY_1B_FLASH.name
+
     def load(self) -> "Transcriber":
         if self._pipeline is not None:
             return self
+        from .models import canary
         from .models import moonshine as mm
         from .models import streaming as ms
         from .pipeline.backends import OfflineBackend, StreamingBackend
@@ -139,10 +148,14 @@ class Transcriber:
                 word_timestamps=self.options.word_timestamps,
             )
         else:
-            cfg = self._model if isinstance(self._model, MoonshineArchConfig) else (
-                ARCHS[self._model])
-            model, cfg = self._load_or_init(
-                lambda: mm.init_params(cfg, generator, self.device), cfg)
+            if self._is_canary():
+                cfg = self._model if isinstance(self._model, CanaryArchConfig) else CANARY_1B_FLASH
+                init = canary.init_params
+            else:
+                cfg = self._model if isinstance(self._model, MoonshineArchConfig) else (
+                    ARCHS[self._model])
+                init = mm.init_params
+            model, cfg = self._load_or_init(lambda: init(cfg, generator, self.device), cfg)
             self.model = model.to(self.device)
             backend = OfflineBackend(
                 self.model,
@@ -212,6 +225,10 @@ class Transcriber:
                 pass
         if self._weights is None:
             return init_fn(), cfg
+        if self._is_canary():
+            raise NotImplementedError(
+                f"no importer of Canary checkpoints yet ({self._weights}): pass the model "
+                "with with_params(), or no weights for random ones from seed")
         from .weights import import_hf_moonshine, import_streaming, load_streaming_checkpoint
 
         if not self._is_streaming():

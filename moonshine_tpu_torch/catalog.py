@@ -70,6 +70,14 @@ for _m in ("tiny_streaming", "small_streaming", "medium_streaming"):
     e = CatalogEntry(_m, "en", _STREAMING_FILES)
     CATALOG[e.key] = e
 
+# Models that only the port runs, kept out of CATALOG (whose listings answer
+# as the JAX package's do); ``resolve`` finds them too.  Canary-1B-Flash
+# (https://huggingface.co/nvidia/canary-1b-flash): a SentencePiece
+# tokenizer.model beside the weights; sizes and checksums unchecked.
+CANARY_ENTRY = CatalogEntry("canary-1b-flash", "en",
+                            (CatalogFile("model.safetensors"), CatalogFile("tokenizer.model")))
+PORT_CATALOG: dict[str, CatalogEntry] = {CANARY_ENTRY.key: CANARY_ENTRY}
+
 VAD_ENTRY = CatalogEntry("vad", "any", (CatalogFile("vad.safetensors"),))
 EMBEDDING_ENTRY = CatalogEntry(
     "embeddinggemma-300m", "any",
@@ -357,9 +365,9 @@ def resolve(
     disabled.
     """
     key = f"{model}-{language}"
-    entry = CATALOG.get(key)
+    entry = CATALOG.get(key) or PORT_CATALOG.get(key)
     if entry is None:
-        raise KeyError(f"Unknown model {key!r}; known: {list_models()}")
+        raise KeyError(f"Unknown model {key!r}; known: {list_models() + sorted(PORT_CATALOG)}")
     roots = [Path(d) for d in (search_dirs or [])]
     roots.append(cache_dir() / key)
     missing: list[str] = []

@@ -6,6 +6,13 @@ steps.  It stops once every batch element has emitted EOS or reached its
 per-utterance token cap (the ``duration * max_tokens_per_second``
 hallucination watchdog), which costs one host sync per step.  Each call
 records its spans in ``profiling``.
+
+The decoder is the model's own: ``greedy_decode`` calls the model's
+``decoder_prompt``, ``compute_cross_kv``, ``init_cache`` and
+``decoder_apply``, which ``models.moonshine.Moonshine`` and
+``models.canary.Canary`` both have.  The prompt, P tokens (Moonshine's is
+its start token, Canary's its task tokens), fills the self-attention cache
+in one decoder call.
 """
 
 from __future__ import annotations
@@ -15,8 +22,6 @@ from typing import NamedTuple
 import torch
 
 from .. import profiling
-from ..core.config import MoonshineArchConfig
-from ..models import moonshine as mm
 from ..ops.int8_kv import Q8_LAUNCHES
 
 
@@ -27,8 +32,8 @@ class GreedyResult(NamedTuple):
 
 @torch.inference_mode()
 def greedy_decode(
-    model: mm.Moonshine,
-    cfg: MoonshineArchConfig,
+    model,  # models.moonshine.Moonshine, models.canary.Canary
+    cfg,  # its configuration
     memory: torch.Tensor,  # [B, T, D] encoder output
     memory_mask: torch.Tensor,  # [B, T] bool
     max_tokens: int,
@@ -37,29 +42,31 @@ def greedy_decode(
     *,
     span_parent: profiling.Span | None = None,
 ) -> GreedyResult:
-    """Records a coarse ``greedy.decode`` span (``batch``, ``decoder_calls``,
-    ``read_ns``, ``q8_launches``: K5's launches in the call) under
-    ``span_parent``; with fine spans on, a
-    ``greedy.prefill`` and a ``greedy.step`` a decoder call under it, each
-    ending with its ``greedy.read``."""
+    """Records a coarse ``greedy.decode`` span (``batch``, ``prompt_tokens``,
+    ``decoder_calls``, ``read_ns``, ``q8_launches``: K5's launches in the
+    call) under ``span_parent``; with fine spans on, a ``greedy.prefill``
+    and a ``greedy.step`` a decoder call under it, each ending with its
+    ``greedy.read``."""
     b = memory.shape[0]
     dev = memory.device
-    dec = model.decoder
     eos = cfg.eos_token_id
-    sp = profiling.begin("greedy.decode", span_parent, batch=b, read_ns=0)
+    prompt = model.decoder_prompt(cfg)
+    sp = profiling.begin("greedy.decode", span_parent, batch=b, prompt_tokens=len(prompt),
+                         read_ns=0)
     q8 = profiling.counter(Q8_LAUNCHES)
     pre = profiling.child("greedy.prefill", sp)
-    k_cross, v_cross = mm.compute_cross_kv(dec, cfg, memory)
-    # One position more than tokens: the BOS pass writes position 0.
-    cache = mm.init_cache(cfg, b, max_tokens + 1, k_cross, v_cross, memory_mask,
-                          dtype=memory.dtype, kv_int8=kv_int8)
+    k_cross, v_cross = model.compute_cross_kv(cfg, memory)
+    # The prompt's positions, then one a token.
+    cache = model.init_cache(cfg, b, max_tokens + len(prompt), k_cross, v_cross, memory_mask,
+                             dtype=memory.dtype, kv_int8=kv_int8)
     if token_caps is None:
         caps = torch.full((b,), max_tokens, dtype=torch.long, device=dev)
     else:
         caps = torch.clamp(torch.as_tensor(token_caps, device=dev).long(), max=max_tokens)
 
-    bos = torch.full((b, 1), cfg.decoder_start_token_id, dtype=torch.long, device=dev)
-    logits, cache, _ = mm.decoder_apply(dec, cfg, bos, cache)
+    # Copied without a wait: a blocking copy would hold the host until the encode ends.
+    ids = torch.tensor(prompt).to(dev, non_blocking=True).expand(b, -1)
+    logits, cache, _ = model.decoder_apply(cfg, ids, cache)
     first = logits[:, -1, :].argmax(dim=-1)
 
     tokens = torch.full((b, max_tokens), eos, dtype=torch.long, device=dev)
@@ -76,7 +83,7 @@ def greedy_decode(
         if stop:
             break
         st = profiling.child("greedy.step", sp)
-        logits, cache, _ = mm.decoder_apply(dec, cfg, last[:, None], cache)
+        logits, cache, _ = model.decoder_apply(cfg, last[:, None], cache)
         nxt = logits[:, -1, :].argmax(dim=-1)
         is_eos = nxt == eos
         keep = ~done & ~is_eos

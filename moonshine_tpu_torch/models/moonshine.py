@@ -140,11 +140,29 @@ class Decoder(nn.Module):
 
 
 class Moonshine(nn.Module):
-    """The whole model's parameters: ``frontend``, ``encoder``, ``decoder``."""
+    """The whole model's parameters: ``frontend``, ``encoder``, ``decoder``.
+    Its methods are what ``greedy_decode`` and the offline backend call of
+    any model (``models.canary.Canary`` has the same); each calls this
+    module's function of its name."""
 
     def __init__(self, frontend: Frontend, encoder: Encoder, decoder: Decoder):
         super().__init__()
         self.frontend, self.encoder, self.decoder = frontend, encoder, decoder
+
+    def encode(self, cfg: MoonshineArchConfig, audio, lengths=None, *, span_parent=None):
+        return encode(self, cfg, audio, lengths, attn_impl="auto", span_parent=span_parent)
+
+    def decoder_prompt(self, cfg: MoonshineArchConfig) -> tuple[int, ...]:
+        return (cfg.decoder_start_token_id,)
+
+    def compute_cross_kv(self, cfg: MoonshineArchConfig, memory: torch.Tensor):
+        return compute_cross_kv(self.decoder, cfg, memory)
+
+    def init_cache(self, cfg: MoonshineArchConfig, *args, **kw) -> DecoderCache:
+        return init_cache(cfg, *args, **kw)
+
+    def decoder_apply(self, cfg: MoonshineArchConfig, tokens, cache):
+        return decoder_apply(self.decoder, cfg, tokens, cache)
 
 
 def _attn_init(g: torch.Generator, dim: int, heads: int, head_dim: int, bias: bool) -> Attention:

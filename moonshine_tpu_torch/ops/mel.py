@@ -210,3 +210,81 @@ def log_mel(
     fb = _on_device(mel_filterbank, (n_mels, n_fft, sample_rate), dev)
     return _log_mel_power(_frames(audio, n_fft, hop, n_fft // 2 if center else 0), basis,
                           fb, eps)
+
+
+# NeMo-style log-mel (``AudioToMelSpectrogramPreprocessor``, the frontend of
+# the FastConformer models such as Canary): pre-emphasis, centred framing
+# with zero padding, a symmetric Hann window shorter than the FFT and
+# centred in it, the power spectrum, Slaney mel filters, ``log(x + guard)``,
+# and each mel bin normalised over the clip's valid frames.
+
+@lru_cache(maxsize=16)
+def _dft_basis_centred(n_fft: int, win_length: int) -> np.ndarray:
+    """Real-DFT basis [n_fft, 2*(n_fft//2+1)] with a SYMMETRIC Hann window
+    of ``win_length`` (``torch.hann_window(periodic=False)``), zero-padded
+    to ``n_fft`` with the window centred, as ``torch.stft`` places it."""
+    n_bins = n_fft // 2 + 1
+    t = np.arange(n_fft)
+    k = np.arange(n_bins)
+    cos = np.cos(2 * np.pi * np.outer(t, k) / n_fft)
+    sin = -np.sin(2 * np.pi * np.outer(t, k) / n_fft)
+    window = np.zeros(n_fft)
+    left = (n_fft - win_length) // 2
+    window[left:left + win_length] = np.hanning(win_length)
+    return (np.concatenate([cos, sin], axis=1) * window[:, None]).astype(np.float32)
+
+
+def _filterbank_from_zero(n_mels: int, n_fft: int, sample_rate: int) -> np.ndarray:
+    """``mel_filterbank_slaney`` from 0 Hz to Nyquist (librosa's ``mel``
+    with ``norm="slaney"``); the Slaney scale's log branch is evaluated at
+    0 Hz too, and discarded there."""
+    with np.errstate(divide="ignore"):
+        return mel_filterbank_slaney(n_mels, n_fft, sample_rate, 0.0, None)
+
+
+def nemo_frames(n_samples, hop: int = 160):
+    """Frames of ``nemo_log_mel`` for ``n_samples`` samples (an int or a
+    tensor of lengths): centred framing gives one per hop and one more."""
+    return n_samples // hop + 1
+
+
+def nemo_log_mel(
+    audio: torch.Tensor,  # [B, N]
+    lengths: torch.Tensor | None = None,  # [B] valid samples; None: all N
+    n_fft: int = 512,
+    win_length: int = 400,
+    hop: int = 160,
+    n_mels: int = 128,
+    sample_rate: int = 16000,
+    preemph: float = 0.97,
+    guard: float = 2.0**-24,
+    std_eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, N] waveform -> (features [B, T, n_mels] float32, valid frames
+    [B]).  Pre-emphasis ``x[n] - preemph * x[n-1]`` (the first sample
+    kept) with the samples past each clip's length zeroed, ``n_fft // 2``
+    zeros on each side, frames every ``hop`` samples under a symmetric
+    ``win_length`` Hann window centred in ``n_fft``, the power spectrum,
+    Slaney mel filters over 0 .. sample_rate/2, ``log(mel + guard)``; then
+    each mel bin less its mean over the clip's valid frames, over their
+    unbiased std plus ``std_eps`` (0 plus ``std_eps`` for a single frame),
+    and every frame past the valid ones set to 0.  A clip's features do
+    not depend on the padding of its batch."""
+    dev = audio.device
+    b, n = audio.shape
+    x = audio.float()
+    if lengths is None:
+        lengths = torch.full((b,), n, dtype=torch.long, device=dev)
+    x = torch.cat([x[:, :1], x[:, 1:] - preemph * x[:, :-1]], dim=1)
+    x = x.masked_fill(torch.arange(n, device=dev)[None, :] >= lengths[:, None], 0.0)
+    x = F.pad(x, (n_fft // 2, n_fft // 2))
+    basis = _on_device(_dft_basis_centred, (n_fft, win_length), dev)
+    fb = _on_device(_filterbank_from_zero, (n_mels, n_fft, sample_rate), dev)
+    mel = _log_mel_power(x.unfold(-1, n_fft, hop), basis, fb, guard)  # [B, T, M]
+    frames = nemo_frames(lengths, hop)
+    valid = (torch.arange(mel.shape[1], device=dev)[None, :] < frames[:, None])[:, :, None]
+    count = frames[:, None, None].float()
+    mean = torch.where(valid, mel, 0.0).sum(1, keepdim=True) / count
+    dev2 = torch.where(valid, mel - mean, 0.0).square().sum(1, keepdim=True)
+    std = torch.sqrt(dev2 / (count - 1.0)).nan_to_num(0.0) + std_eps
+    return torch.where(valid, (mel - mean) / std, 0.0), frames

@@ -1,10 +1,12 @@
 """ASR backends: the model-facing seam of the transcription pipeline.
 
 Counterpart of the JAX package's ``pipeline/backends.py``.
-``OfflineBackend`` (the non-streaming models) re-transcribes each
-just-updated segment whole.  Audio is padded to exponential duration
-buckets, as in the JAX package (there so that XLA compiles few shapes; here
-it keeps the two packages' inputs, and so their outputs, the same).
+``OfflineBackend`` (the non-streaming models: Moonshine, and Canary of
+``models/canary.py``) re-transcribes each just-updated segment whole,
+through the model's own ``encode`` and ``greedy_decode``.  Audio is padded
+to exponential duration buckets, as in the JAX package (there so that XLA
+compiles few shapes; here it keeps the two packages' inputs, and so their
+outputs, the same).
 ``StreamingBackend`` (the streaming family) keeps one incremental state per
 segment and feeds only new samples through it.
 """
@@ -22,6 +24,7 @@ from ..core.tokenizer import BinTokenizer
 from ..decoding.greedy import greedy_decode
 from ..models import moonshine as mm
 from ..models import streaming as ms
+from ..models.canary import Canary, CanaryArchConfig
 
 INTERNAL_SAMPLE_RATE = 16000
 
@@ -48,15 +51,17 @@ class AsrBackend(Protocol):
 class OfflineBackend:
     """Whole-segment greedy transcription with duration bucketing.
 
-    Runs on the device that holds ``model``.  With ``word_timestamps`` a
-    final segment also gets per-word times from the decoder's
-    cross-attention (``pipeline/alignment.py``).
+    Runs on the device that holds ``model`` (a ``models.moonshine.Moonshine``
+    or a ``models.canary.Canary``, with its configuration).  With
+    ``word_timestamps`` a final segment of a Moonshine model also gets
+    per-word times from the decoder's cross-attention
+    (``pipeline/alignment.py``).
     """
 
     def __init__(
         self,
-        model: mm.Moonshine,
-        cfg: MoonshineArchConfig,
+        model: mm.Moonshine | Canary,
+        cfg: MoonshineArchConfig | CanaryArchConfig,
         tokenizer: BinTokenizer,
         max_tokens_per_second: float = 6.5,
         min_bucket_seconds: float = 2.0,
@@ -64,6 +69,9 @@ class OfflineBackend:
         word_timestamps: bool = False,
         kv_int8: bool = False,
     ):
+        if word_timestamps and isinstance(cfg, CanaryArchConfig):
+            raise ValueError("word timestamps need the decoder's cross-attention weights, "
+                             "which the Canary decoder does not return")
         self.model = model
         self.device = next(model.parameters()).device
         self.cfg = cfg
@@ -119,9 +127,9 @@ class OfflineBackend:
         # On CUDA the encode span ends once its kernels are enqueued; the
         # decode span's host read of the lengths waits for both.
         with profiling.span("backend.encode", bucket_samples=n_bucket) as sp:
-            memory, mask = mm.encode(
-                self.model, self.cfg, torch.from_numpy(padded)[None].to(self.device), lengths,
-                attn_impl="auto", span_parent=sp)
+            memory, mask = self.model.encode(
+                self.cfg, torch.from_numpy(padded)[None].to(self.device), lengths,
+                span_parent=sp)
             sp.enqueued = self.device.type == "cuda"
         duration = n_real / INTERNAL_SAMPLE_RATE
         cap = max(int(duration * self.max_tokens_per_second), 1)

@@ -13,13 +13,15 @@ per-line latency travels inside the transcript itself.  Here:
   ring buffer of the newest :data:`RING_SPANS` in memory; :func:`spans`
   reads them back.  Nothing is written while the program runs.
 - **Two tiers.**  Coarse spans (:func:`span`, :func:`begin`) are one per
-  call of ``greedy_decode``, ``models.moonshine.encode``, a service update
-  and a backend call, always recorded: two clock reads and an append a call,
-  with counters the host already knows as attributes.  Fine spans
-  (:func:`child`, :func:`record`: the steps of a decode loop, the phases of
-  an update) are recorded only under a coarse span that opened while
-  ``torch.profiler`` was recording or while :func:`enable_device_run_log`
-  was on (``TranscriberOptions.log_model_run`` turns it on).
+  call of ``greedy_decode``, ``models.moonshine.encode``,
+  ``models.canary.encode``, a service update and a backend call, always
+  recorded: two clock reads and an append a call, with counters the host
+  already knows as attributes.  Fine spans (:func:`child`, :func:`record`:
+  the steps of a decode loop, the phases of an update, the parts of a
+  Canary encoder layer) are recorded only under a coarse span that opened
+  while ``torch.profiler`` was recording or while
+  :func:`enable_device_run_log` was on (``TranscriberOptions.log_model_run``
+  turns it on).
 - **The device runs on.**  PyTorch returns once CUDA work is enqueued, so
   a span times the host's part of the call.  A span that ends without
   waiting for its device work is marked ``enqueued``; one that ends with a

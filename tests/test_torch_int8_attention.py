@@ -89,7 +89,10 @@ def _masks(kind: str, b, h, s, t, device):
 # cross a 2,048 and a 3,200 slice of a 3,200-column buffer: the wide set at
 # s=1), single rows of too many blocks for the wide set over a longer
 # cache, the speculative gamma+1, a beam's folded queries (4 beams x s=1 on
-# shared cross caches), and hd 36.
+# shared cross caches), hd 36, and Canary's head dim 128 at B=128: its self
+# attention over a 170-column cache at s=1 and over the 5-token prompt's
+# prefill, and its cross attention over the 513 frames of a 40.96 s bucket
+# at s=1 and s=5.
 SHAPES = [
     (64, 1, 8, 52, 41, None),
     (64, 1, 8, 52, 256, None),
@@ -103,6 +106,10 @@ SHAPES = [
     (16, 5, 8, 52, 384, None),
     (16, 4, 8, 52, 384, None),
     (8, 1, 6, 36, 97, None),
+    (128, 1, 8, 128, 170, None),
+    (128, 5, 8, 128, 170, None),
+    (128, 1, 8, 128, 513, None),
+    (128, 5, 8, 128, 513, None),
 ]
 
 

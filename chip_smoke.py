@@ -5,7 +5,7 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout, holds each kernel against its plain PyTorch
-version on the card (K1 to K5; K1 and K2 also: a batch row alone gives the
+version on the card (K1 to K6; K1 and K2 also: a batch row alone gives the
 bits it gets in a batch, and every bf16 and float32 build of them holds tensor-core
 and cp.async instructions, read with cuobjdump), times it beside its bound
 and PyTorch's own call for the same function, drives the offline
@@ -103,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import copy
 import json
 import os
@@ -736,6 +737,144 @@ def phase_q8_times(q8) -> dict:
     return out
 
 
+# K6 (ops/layer_norm.layer_norm on the card) against the plain version:
+# each element within LN_F32_ULPS float32 ulps of |plain| + (1 + |mean| /
+# std) * |w| + |b|, plus one ulp of a bf16 or fp16 output
+# (tests/test_torch_layer_norm.py gives the reasons: the same rounding
+# places, only the order of the float32 sums differs).
+LN_F32_ULPS = 8
+LN_EPS = 1e-5
+# (label, leading shape, width): the cells' norms.  Base b64's decode step
+# (64 rows of 416) and encoder (64 clips of the 256-frame bucket); the
+# service's decode step (32 streams of 704) and verify at the draft cap
+# (128 + 1 tokens).
+LN_SHAPES = [
+    ("b64 decode", (64, 1), 416),
+    ("b64 encode", (64, 256), 416),
+    ("serve decode", (32, 1), 704),
+    ("serve verify", (32, 129), 704),
+]
+
+
+def ln_count() -> int:
+    from moonshine_tpu_torch import profiling
+    from moonshine_tpu_torch.ops.layer_norm import LN_LAUNCHES
+
+    return profiling.counter(LN_LAUNCHES)
+
+
+def ln_inputs(lead, width, dtype, bias, seed):
+    """x of normal values of std 2 around a per-row offset of std 1, a
+    weight near 1 and a small bias (or None), in ``dtype``, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((*lead, width), device="cuda", generator=g) * 2
+    x = x + torch.randn((*lead, 1), device="cuda", generator=g)
+    w = 1 + 0.5 * torch.randn((width,), device="cuda", generator=g)
+    b = 0.1 * torch.randn((width,), device="cuda", generator=g) if bias else None
+    return x.to(dtype), w.to(dtype), None if b is None else b.to(dtype)
+
+
+def ln_excess(y, ref, x, w, b) -> float:
+    """The largest element error of K6's output ``y`` over its bound
+    (LN_F32_ULPS above) against the plain version's ``ref`` for the same x,
+    weight and bias: at most 1 where the two agree."""
+    if y.dtype != ref.dtype or y.shape != ref.shape:
+        return float("inf")
+    yf, rf, xf = y.float(), ref.float(), x.float()
+    if not bool(torch.isfinite(yf).all()):
+        return float("inf")
+    mean = xf.mean(-1, keepdim=True)
+    std = torch.sqrt((xf - mean).square().mean(-1, keepdim=True) + LN_EPS)
+    bound = rf.abs() + (1 + mean.abs() / std) * w.float().abs()
+    if b is not None:
+        bound = bound + b.float().abs()
+    bound = LN_F32_ULPS * 2.0**-23 * bound
+    if y.dtype != torch.float32:
+        _, e = torch.frexp(torch.maximum(yf.abs(), rf.abs()))
+        mantissa, tiniest = (7, 2.0**-133) if y.dtype == torch.bfloat16 else (10, 2.0**-24)
+        bound = bound + torch.clamp(torch.ldexp(torch.ones_like(yf), e - 1 - mantissa),
+                                    min=tiniest)
+    return float(((yf - rf).abs() / bound).max())
+
+
+def phase_ln_vs_plain(ln) -> float:
+    """K6 against the plain version on the same card tensors at every shape
+    of LN_SHAPES, in bf16, fp16 and float32 (the weight in x's dtype), with
+    and without a bias; one launch a call.  Returns the largest excess."""
+    worst = 0.0
+    for label, lead, width in LN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            for bias in (False, True):
+                x, w, b = ln_inputs(lead, width, dtype, bias, seed=width + lead[1])
+                before = ln_count()
+                y = ln.layer_norm(x, w, b, LN_EPS)
+                torch.cuda.synchronize()
+                excess = ln_excess(y, ln.layer_norm_plain(x, w, b, LN_EPS), x, w, b)
+                worst = max(worst, excess)
+                ok = ln_count() == before + 1 and excess <= 1
+                log(f"  K6 {label} {list(lead) + [width]} {str(dtype)[6:]}"
+                    f"{' bias' if bias else ''}: largest error {excess:.3f} of its bound "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"K6 disagrees with its plain version at {label} {dtype}")
+    return worst
+
+
+def phase_ln_times(ln) -> dict:
+    """K6, its plain version and the yardstick (``F.layer_norm``, one
+    PyTorch launch, which the port never calls) at every shape of
+    LN_SHAPES in bf16 with a bf16 weight and no bias (Moonshine's decoder
+    norms), beside the bound: x read and y written once, the weight read
+    once, at HBM_BYTES_PER_S.  Before each timed call the card reads twice
+    its L2 and then spins, as for K5."""
+    scratch = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def before():
+        scratch.sum()
+        torch.cuda._sleep(2_000_000)
+
+    out = {}
+    for label, lead, width in LN_SHAPES:
+        x, w, _ = ln_inputs(lead, width, torch.bfloat16, False, seed=7)
+        kernel_ms = cuda_time_ms(lambda: ln.layer_norm(x, w, None, LN_EPS), before=before)
+        plain_ms = cuda_time_ms(lambda: ln.layer_norm_plain(x, w, None, LN_EPS), before=before)
+        library_ms = cuda_time_ms(
+            lambda: torch.nn.functional.layer_norm(x, (width,), w, None, LN_EPS), before=before)
+        bytes_moved = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        out[label] = {"shape": [*lead, width], "dtype": "bfloat16", "kernel_ms": kernel_ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms, "bytes": bytes_moved,
+                      "bound_ms": bound_ms, "bound_by": "bytes"}
+        log(f"  K6 {label} {list(lead) + [width]} bf16: kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.layer_norm {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"(bytes: {bytes_moved / 1e6:.3f} MB) -> {bound_ms / kernel_ms:.1%} of bound")
+    return out
+
+
+@contextlib.contextmanager
+def ln_per_call(module, name: str, per_call: int, what: str):
+    """K6's launches in each call of ``module.name`` (a decoder call) while
+    the block runs; each call must make ``per_call`` (three a decoder layer
+    and the final norm).  Yields the list of counts."""
+    fn = getattr(module, name)
+    counts = []
+
+    def counted(*args, **kw):
+        before = ln_count()
+        out = fn(*args, **kw)
+        counts.append(ln_count() - before)
+        return out
+
+    setattr(module, name, counted)
+    try:
+        yield counts
+    finally:
+        setattr(module, name, fn)
+    if not counts or any(c != per_call for c in counts):
+        raise SystemExit(f"K6 launched {sorted(set(counts))} times a decoder call of {what} "
+                         f"over {len(counts)} calls, not {per_call}")
+
+
 def synthetic_clip(seconds: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     t = np.arange(int(SAMPLE_RATE * seconds)) / SAMPLE_RATE
@@ -939,8 +1078,10 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
     """encode + greedy_decode at the bench configuration (batched_workload,
     with w8a8 weights if asked): one warm-up and the best of 3.  K5 must
     launch twice a decoder layer a decoder call, in the recorder's counter
-    and in each ``greedy.decode`` span's ``q8_launches``."""
+    and in each ``greedy.decode`` span's ``q8_launches``, and K6 three times
+    a decoder layer and once more a decoder call."""
     from moonshine_tpu_torch import profiling
+    from moonshine_tpu_torch.models import moonshine as mm
 
     encode, decode, max_tokens = batched_workload(cfg, batch, w8a8)
     launches_start = launch_count(ea.encoder_attention_packed)
@@ -949,11 +1090,14 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
     launches0 = launch_count(ea.encoder_attention_packed)
     q8_0 = q8_count()
     walls, encs, decs = [], [], []
-    for _ in range(3):
-        _, res, enc_s, dec_s = run_once(encode, decode)
-        walls.append(enc_s + dec_s)
-        encs.append(enc_s)
-        decs.append(dec_s)
+    ln_per = 3 * cfg.decoder_layers + 1
+    ln0 = ln_count()
+    with ln_per_call(mm, "decoder_apply", ln_per, "the batched decode") as ln_calls:
+        for _ in range(3):
+            _, res, enc_s, dec_s = run_once(encode, decode)
+            walls.append(enc_s + dec_s)
+            encs.append(enc_s)
+            decs.append(dec_s)
     per_encode = (launch_count(ea.encoder_attention_packed) - launches0) / 3
     if per_encode != cfg.encoder_layers:
         raise SystemExit(f"K1 launched {per_encode} times per encode, not {cfg.encoder_layers}")
@@ -970,14 +1114,17 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
            "k1_launches_per_encode": per_encode,
            "k1_launches": launch_count(ea.encoder_attention_packed) - launches_start, "w8a8": w8a8,
            "q8_launches_per_decoder_call": q8_per_call,
+           "ln_launches_per_decoder_call": sorted(set(ln_calls)),
+           "ln_decoder_calls": len(ln_calls), "ln_launches": ln_count() - ln0,
            "decoder_calls": [sp.attrs["decoder_calls"] for sp in decodes],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  B={batch} x {seconds} s (T={out['frames']}), {max_tokens} tokens, bf16, int8 KV"
         f"{', w8a8 weights' if w8a8 else ''}: "
         f"best {best:.4f} s (encode {min(encs):.4f} s, decode {min(decs):.4f} s) -> "
         f"{out['audio_s_per_s']:.2f} audio-s/s on {card}; {per_encode:.0f} K1 launches per "
-        f"encode, {q8_per_call:.0f} K5 launches per decoder call; mean tokens "
-        f"{out['mean_tokens']:.1f}")
+        f"encode, {q8_per_call:.0f} K5 launches per decoder call, K6 launches "
+        f"{sorted(set(ln_calls))} in each of {len(ln_calls)} decoder calls "
+        f"({out['ln_launches']} in all); mean tokens {out['mean_tokens']:.1f}")
     return out
 
 
@@ -1718,21 +1865,24 @@ def zero_launch_count(fn) -> None:
 
 
 def kernel_launches(ea, bg) -> dict:
-    """K1-K4's launches by wrapper name, and K5's as ``int8_attention``."""
+    """K1-K4's launches by wrapper name, K5's as ``int8_attention`` and K6's
+    as ``layer_norm``."""
     counts = {c.__name__: launch_count(c) for c in (ea.encoder_attention_packed,
                                                     ea.encoder_attention, bg.gather_kv_rows,
                                                     bg.gather_scale_rows)}
-    return {**counts, "int8_attention": q8_count()}
+    return {**counts, "int8_attention": q8_count(), "layer_norm": ln_count()}
 
 
 def reset_launches(ea, bg) -> None:
     from moonshine_tpu_torch import profiling
     from moonshine_tpu_torch.ops.int8_kv import Q8_LAUNCHES
+    from moonshine_tpu_torch.ops.layer_norm import LN_LAUNCHES
 
     for c in (ea.encoder_attention_packed, ea.encoder_attention, bg.gather_kv_rows,
               bg.gather_scale_rows):
         zero_launch_count(c)
     profiling.reset_counter(Q8_LAUNCHES)
+    profiling.reset_counter(LN_LAUNCHES)
 
 
 def phase_serving(card: str) -> dict:
@@ -1754,16 +1904,18 @@ def phase_serving(card: str) -> dict:
     step = SERVING_KW["update_frames"] * 80
     per = S // K
     update_ms, final_ms, events_n = [], [], 0
+    ln_per = 3 * STREAMING_ARCHS["medium_streaming"].depth + 1
     t0 = time.perf_counter()
-    for _ in range(SERVING_UPDATES):
-        for c in range(K):
-            for i in range(c * per, (c + 1) * per):
-                feed(i, step)
-            t1 = time.perf_counter()
-            events = svc.update(cohort=c)
-            update_ms.append((time.perf_counter() - t1) * 1e3)
-            events_n += len(events)
-            final_ms += [e.latency_ms for e in events if e.is_final]
+    with ln_per_call(sb, "_decode_step_batch", ln_per, "the service") as ln_calls:
+        for _ in range(SERVING_UPDATES):
+            for c in range(K):
+                for i in range(c * per, (c + 1) * per):
+                    feed(i, step)
+                t1 = time.perf_counter()
+                events = svc.update(cohort=c)
+                update_ms.append((time.perf_counter() - t1) * 1e3)
+                events_n += len(events)
+                final_ms += [e.latency_ms for e in events if e.is_final]
     wall = time.perf_counter() - t0
     audio_s = S * SERVING_UPDATES * step / SAMPLE_RATE
     peak = torch.cuda.max_memory_allocated()
@@ -1788,6 +1940,8 @@ def phase_serving(card: str) -> dict:
            "n_finals": len(final_ms), "events": events_n, "peak_bytes": peak,
            "state_bytes_per_cohort": reckoned, "state_bytes_allocated": allocated,
            "q8_launches_per_decoder_call": q8_per_call,
+           "ln_launches_per_decoder_call": sorted(set(ln_calls)),
+           "ln_decoder_calls": len(ln_calls),
            "decoder_calls": [sp.attrs["decoder_calls"] for sp in updates]}
     log(f"  cut: {SERVING_UPDATES} update periods (the bench runs 40); the stagger's pre-fill "
         "drained with ingest-only updates (the bench decodes them)")
@@ -1797,7 +1951,8 @@ def phase_serving(card: str) -> dict:
         f"update wall p50 {out['update_ms_p50']:.1f} ms, p95 {out['update_ms_p95']:.1f} ms; "
         f"final-update latency p50 {final_p50}; {len(final_ms)} finals, {events_n} events; "
         f"peak allocated {peak / 1e9:.3f} GB on {card}; {q8_per_call:.0f} K5 launches per "
-        f"decoder call over {len(updates)} decoding updates")
+        f"decoder call over {len(updates)} decoding updates, K6 launches {sorted(set(ln_calls))} "
+        f"in each of {len(ln_calls)} decoder calls")
     log("  state per cohort of " + f"{per} streams: " + ", ".join(
         f"{k} {v / 1e6:.1f} MB" for k, v in reckoned.items())
         + f"; the allocator took {allocated / 1e6:.1f} MB for one more, on {card}")
@@ -4658,6 +4813,7 @@ def main() -> int:
     from moonshine_tpu_torch.ops import beam_gather as bg
     from moonshine_tpu_torch.ops import encoder_attention as ea
     from moonshine_tpu_torch.ops import int8_kv as q8
+    from moonshine_tpu_torch.ops import layer_norm as ln
 
     t_start = time.perf_counter()
     card = card_line()
@@ -4682,6 +4838,8 @@ def main() -> int:
     gather_err = phase_gather_vs_plain(bg)
     log("[kernel vs plain] K5")
     q8_err = phase_q8_vs_plain(q8)
+    log("[kernel vs plain] K6")
+    ln_err = phase_ln_vs_plain(ln)
     log("[kernel SASS] K1, K2")
     sass = phase_sass(_build)
     log("[kernel times] K1")
@@ -4694,6 +4852,8 @@ def main() -> int:
     gather_times = phase_gather_times(bg)
     log("[kernel times] K5")
     q8_times = phase_q8_times(q8)
+    log("[kernel times] K6")
+    ln_times = phase_ln_times(ln)
 
     with tempfile.TemporaryDirectory() as tmp:
         tok_path = os.path.join(tmp, "tokenizer.bin")
@@ -4857,9 +5017,10 @@ def main() -> int:
         for path in ("mic", "cli transcribe", "latency"):
             if not edge_launches[path]["encoder_attention_packed"]:
                 raise SystemExit(f"K1 did not launch on the {path} path")
-        # Training and weight tensor parallelism.  No kernel of the
-        # repository has a backward, so the trainers encode with the
-        # split-head attention and launch none; the finetuned weights'
+        # Training and weight tensor parallelism.  Of the repository's
+        # kernels only K6 has a backward (LayerNormK6), so the trainers
+        # encode with the split-head attention and launch K1-K5 none, and
+        # every trainer's norms launch K6; the finetuned weights'
         # Transcriber runs K1, and the weight-TP path runs K1 in its encode
         # and K3 and K4 in its beam decodes, on each rank's heads (counted
         # over the mesh's runs only).
@@ -4899,8 +5060,12 @@ def main() -> int:
             f"{train_s:.1f} s ([g2p and tagger train] {g2p_train['phase_s']:.1f} s) on {card}")
         for path in ("train step", "streaming train", "spelling and diarization train",
                      "g2p and tagger train"):
-            if any(train_launches[path].values()):
+            if any(n for k, n in train_launches[path].items() if k != "layer_norm"):
                 raise SystemExit(f"the {path} path launched a kernel with no backward")
+        for path in ("train step", "finetune and checkpoint", "weight TP", "streaming train",
+                     "spelling and diarization train", "g2p and tagger train"):
+            if not train_launches[path]["layer_norm"]:
+                raise SystemExit(f"K6 did not launch on the {path} path")
 
     k3, k4 = gather_times["K3 int8"], gather_times["K4"]
     k3_bf16 = gather_times["K3 bf16"]
@@ -4985,10 +5150,25 @@ def main() -> int:
         "shape": q8_main["shape"], "ms": q8_main["kernel_ms"], "kernel_ms": q8_main["kernel_ms"],
         "plain_ms": q8_main["plain_ms"], "library_ms": q8_main["library_ms"],
         "bound_ms": q8_main["bound_ms"], "bound_by": q8_main["bound_by"], "shapes": q8_times})
+    ln_main = ln_times["b64 decode"]
+    kernels.append({
+        "name": "layer_norm", "route": "cuda", "source": "moonshine_tpu_torch/csrc/layer_norm.cu",
+        "replaces": "none: moonshine_tpu/models/layers.py layer_norm is XLA code",
+        "launches_per_decoder_call": {
+            "batched offline decode": batched["ln_launches_per_decoder_call"],
+            "w8a8 batched": w8a8_batched["ln_launches_per_decoder_call"],
+            "serving": serving["ln_launches_per_decoder_call"]},
+        "launches_by_path": {"batched offline decode": batched["ln_launches"],
+                             "w8a8 batched": w8a8_batched["ln_launches"],
+                             **on_counted_paths("layer_norm")},
+        "max_error_over_bound": ln_err, "f32_ulps": LN_F32_ULPS,
+        "shape": ln_main["shape"], "ms": ln_main["kernel_ms"], "kernel_ms": ln_main["kernel_ms"],
+        "plain_ms": ln_main["plain_ms"], "library_ms": ln_main["library_ms"],
+        "bound_ms": ln_main["bound_ms"], "bound_by": ln_main["bound_by"], "shapes": ln_times})
     record = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "kernel_times": times, "hm_times": hm_times, "f32_times": f32_times,
               "batch_independence": batch_independence, "sass": sass,
-              "gather_times": gather_times, "q8_times": q8_times,
+              "gather_times": gather_times, "q8_times": q8_times, "ln_times": ln_times,
               "main_path": main_path, "reference_check": ref, "word_timestamps": words,
               "beam_reference_check": beam_ref, "speculative_reference": spec_ref,
               "batched": batched, "beam": beam, "sharded": sharded,

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import layer_norm as _layer_norm
+
 
 def _param(x: torch.Tensor | None) -> nn.Parameter | None:
     return None if x is None else nn.Parameter(x, requires_grad=False)
@@ -205,15 +207,9 @@ def conv_same(x: torch.Tensor, p: Conv1d, stride: int = 1, dilation: int = 1) ->
 
 def layer_norm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis, computed in float32; no bias unless
-    present."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * p.weight
-    if p.bias is not None:
-        y = y + p.bias
-    return y.to(x.dtype)
+    present.  K6 on CUDA tensors, the plain version on the CPU
+    (``ops/layer_norm.py``)."""
+    return _layer_norm.layer_norm(x, p.weight, p.bias, eps)
 
 
 def group_norm_all(p: Norm, x: torch.Tensor, mask: torch.Tensor | None,

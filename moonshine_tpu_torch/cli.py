@@ -5,8 +5,8 @@ the port, on CUDA unless ``--device`` names another device.  Mirrors the
 reference CLI surface (reference: language-bindings/python/src/
 moonshine_voice/cli.py with mic/transcribe/tts/agent/download/g2p
 subcommands).  ``bench`` runs the JAX package's ``bench.py`` there; the
-port has no bench entry yet (ROADMAP.md item 13.5), so its ``bench``
-refuses with a non-zero exit.
+port's benchmark is ``python3 benchmark/run.py --workload <cell>``, so its
+``bench`` refuses with a non-zero exit and names that command.
 """
 
 from __future__ import annotations
@@ -107,8 +107,9 @@ def cmd_models(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    print("bench: the port has no benchmark entry yet (ROADMAP.md queue 1, item 13.5); "
-          "the JAX package's bench.py runs JAX and is not run from here", file=sys.stderr)
+    print("bench: the port's benchmark is `python3 benchmark/run.py --workload <cell>` (its "
+          "cells are in BENCHMARK.json, its numbers in PERF.md); the JAX package's bench.py "
+          "runs JAX and is not run from here", file=sys.stderr)
     return 2
 
 
@@ -218,7 +219,7 @@ def main(argv=None) -> int:
     cp.add_argument("--json", action="store_true")
     cp.set_defaults(fn=cmd_models)
 
-    bp = sub.add_parser("bench", help="Refused: the port has no benchmark entry yet")
+    bp = sub.add_parser("bench", help="Refused: the port's benchmark is benchmark/run.py")
     bp.set_defaults(fn=cmd_bench)
 
     ap = sub.add_parser("agent", help="Text-driven agent REPL (stdin)")

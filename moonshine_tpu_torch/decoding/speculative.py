@@ -24,6 +24,7 @@ proposal is accepted.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -31,7 +32,7 @@ import torch
 from ..core.config import MoonshineArchConfig
 from ..models import moonshine as mm
 from ..models.layers import dense, layer_norm
-from ..ops.int8_kv import quantize_kv
+from ..ops.int8_kv import LayerKV, attend_kv, quantize_kv, write_kv
 from ..ops.rotary import apply_rotary, rotary_tables
 
 
@@ -51,10 +52,10 @@ class BatchSpecResult(NamedTuple):
     rounds: int  # verify passes, shared by the lanes (lockstep)
 
 
-def _write_cache(cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> None:
-    """Write ``new`` [B, s, H, hd] into the dim-major cache [B, H, hd, cap]
-    at each lane's ``positions`` [B, s], in place; writes at or past ``cap``
-    vanish.
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` [B, H, hd, s] into the dim-major cache [B, H, hd, cap]
+    at each lane's ``positions`` [B, s], in place, and return the cache;
+    writes at or past ``cap`` vanish.
 
     One indexed write.  A lane's positions are consecutive, so its writes
     past the cap are a suffix; they are sent to the lane's first slot with
@@ -64,13 +65,14 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor
     b, s = positions.shape
     cap = cache.shape[-1]
     slots = cache.permute(0, 3, 1, 2)  # [B, cap, H, hd], a view of the cache
-    new = new.to(cache.dtype)
+    new = new.permute(0, 3, 1, 2).to(cache.dtype)  # [B, s, H, hd]
     lanes = torch.arange(b, device=positions.device)
     valid = positions < cap
     first = positions[:, 0].clamp(max=cap - 1)
     head = torch.where(valid[:, 0, None, None], new[:, 0], slots[lanes, first])
     slots[lanes[:, None].expand(b, s), torch.where(valid, positions, first[:, None])] = (
         torch.where(valid[:, :, None, None], new, head[:, None]))
+    return cache
 
 
 def _decoder_apply_vec(
@@ -106,16 +108,17 @@ def _decoder_apply_vec(
     cross = mm.DecoderCache(k_self, v_self, 0, k_cross, v_cross, memory_mask,
                             k_cross_scale=k_cross_scale, v_cross_scale=v_cross_scale)
     cross_mask = memory_mask[:, None, None, :]
+    put = functools.partial(_write_cache, positions=positions)
     h = dec.embed[tokens]
     for layer, lp in enumerate(dec.layers):
         x = layer_norm(lp.ln1, h, eps)
         a = lp.self_attn
         q = apply_rotary(mm._split_heads(dense(a.q, x), cfg.decoder_heads), cos, sin)
         k_new = apply_rotary(mm._split_heads(dense(a.k, x), cfg.decoder_kv_heads), cos, sin)
-        _write_cache(k_self[layer], k_new, positions)
-        _write_cache(v_self[layer], mm._split_heads(dense(a.v, x), cfg.decoder_kv_heads),
-                     positions)
-        o = mm._attention_dm(q, k_self[layer].to(q.dtype), v_self[layer].to(q.dtype), self_mask)
+        v_new = mm._split_heads(dense(a.v, x), cfg.decoder_kv_heads)
+        kv = write_kv(LayerKV(k_self[layer], v_self[layer]), k_new.permute(0, 2, 3, 1),
+                      v_new.permute(0, 2, 3, 1), put)
+        o = attend_kv(q, kv, self_mask)
         h = h + dense(a.o, o.reshape(b, s, -1))
         h, _ = mm._decoder_cross_mlp_apply(cfg, h, lp, layer, cross, cross_mask, False, 1)
     h = layer_norm(dec.norm, h, eps)

@@ -64,7 +64,7 @@ from torch import nn
 
 from .. import profiling
 from ..core.device import resolve_device
-from ..ops.int8_kv import attention_dm_q8, quantize_kv
+from ..ops.int8_kv import attend_kv, layer_kv, write_kv
 from ..ops.mel import nemo_frames, nemo_log_mel
 from . import moonshine as mm
 from .layers import Conv1d, Conv2d, Dense, Norm, _param, _uniform, dense_init
@@ -495,18 +495,12 @@ def _self_attention(cfg: CanaryArchConfig, h, lp: mm.DecoderLayer, layer: int,
     q = _linear(a.q, x).view(b, s, heads, hd)
     k = _linear(a.k, x).view(b, s, heads, hd).permute(0, 2, 3, 1)  # [B, H, hd, s]
     v = _linear(a.v, x).view(b, s, heads, hd).permute(0, 2, 3, 1)
-    cols = slice(cache.cur_len, cache.cur_len + s)
-    k_l, v_l = cache.k_self[layer], cache.v_self[layer]
-    if cache.k_self_scale is not None:
-        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-        k_l[..., cols], v_l[..., cols] = kq, vq
-        cache.k_self_scale[layer][..., cols] = ks
-        cache.v_self_scale[layer][..., cols] = vs
-        o = attention_dm_q8(q, k_l, cache.k_self_scale[layer], v_l, cache.v_self_scale[layer],
-                            mask)
-    else:
-        k_l[..., cols], v_l[..., cols] = k, v
-        o = mm._attention_dm(q, k_l.to(q.dtype), v_l.to(q.dtype), mask)
+
+    def put(buf, new):
+        buf[..., cache.cur_len:cache.cur_len + s] = new
+        return buf
+
+    o = attend_kv(q, write_kv(layer_kv(cache, "self", layer), k, v, put), mask)
     return h + _linear(a.o, o.reshape(b, s, -1))
 
 
@@ -515,12 +509,7 @@ def _cross_attention_ffn(cfg: CanaryArchConfig, h, lp: mm.DecoderLayer, layer: i
     b, s, _ = h.shape
     a, eps = lp.cross_attn, cfg.layer_norm_eps
     q = _linear(a.q, _ln(lp.ln2, h, eps)).view(b, s, cfg.n_heads, cfg.head_dim)
-    kc, vc = cache.k_cross[layer], cache.v_cross[layer]
-    if cache.k_cross_scale is not None:
-        o = attention_dm_q8(q, kc, cache.k_cross_scale[layer], vc, cache.v_cross_scale[layer],
-                            mask)
-    else:
-        o = mm._attention_dm(q, kc.to(q.dtype), vc.to(q.dtype), mask)
+    o = attend_kv(q, layer_kv(cache, "cross", layer), mask)
     h = h + _linear(a.o, o.reshape(b, s, -1))
     x = _ln(lp.ln3, h, eps)
     return h + _linear(lp.mlp.fc2, F.relu(_linear(lp.mlp.fc1, x)))

@@ -51,7 +51,7 @@ from ..ops.encoder_attention import (
     encoder_attention_packed,
     encoder_attention_packed_sharded,
 )
-from ..ops.int8_kv import attention_dm_q8, attention_dm_q8_with_weights, quantize_kv
+from ..ops.int8_kv import attend_kv, layer_kv, quantize_kv, write_kv
 from ..ops.rotary import (
     apply_rotary,
     apply_rotary_fullwidth,
@@ -283,18 +283,6 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, NEG_INF)
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", weights.to(q.dtype), v)
-    return (out, weights) if with_weights else out
-
-
-def _attention_dm(q, k, v, mask, with_weights: bool = False):
-    """Attention over dim-major K/V [B, H, hd, T] (see DecoderCache); with
-    ``with_weights`` also returns the float32 softmax weights [B, H, s, T]."""
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bshd,bhdt->bhst", q.float(), k.float()) * scale
-    if mask is not None:
-        logits = logits.masked_fill(~mask, NEG_INF)
-    weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhst,bhdt->bshd", weights.to(q.dtype), v)
     return (out, weights) if with_weights else out
 
 
@@ -615,7 +603,7 @@ def _decoder_layer_apply(cfg, h, lp: DecoderLayer, layer: int, cache: DecoderCac
                          cos, sin, self_mask):
     """Self-attention of one decoder layer over s new tokens; writes their
     keys and values into the layer's cache at [cur_len, cur_len + s).
-    Returns (h, the layer's self K, its self V)."""
+    Returns (h, the layer's self caches as written)."""
     b, s, _ = h.shape
     a = lp.self_attn
     x = copy_to_model(layer_norm(lp.ln1, h, cfg.layer_norm_eps), a.tp)
@@ -623,24 +611,11 @@ def _decoder_layer_apply(cfg, h, lp: DecoderLayer, layer: int, cache: DecoderCac
     q = apply_rotary(_split_heads(dense(a.q, x), _heads(a.q, hd)), cos, sin)
     k_new = apply_rotary(_split_heads(dense(a.k, x), _heads(a.k, hd)), cos, sin)
     v_new = _split_heads(dense(a.v, x), _heads(a.v, hd))
-    k_new_dm = k_new.permute(0, 2, 3, 1)  # [B, H, hd, s]
-    v_new_dm = v_new.permute(0, 2, 3, 1)
-    cols = slice(cache.cur_len, cache.cur_len + s)
-    k_l, v_l = cache.k_self[layer], cache.v_self[layer]
-    if cache.k_self_scale is not None:
-        kq, ks = quantize_kv(k_new_dm)
-        vq, vs = quantize_kv(v_new_dm)
-        k_l[..., cols] = kq
-        v_l[..., cols] = vq
-        cache.k_self_scale[layer][..., cols] = ks
-        cache.v_self_scale[layer][..., cols] = vs
-        o = attention_dm_q8(q, k_l, cache.k_self_scale[layer], v_l,
-                            cache.v_self_scale[layer], self_mask)
-    else:
-        k_l = _write_cols(k_l, k_new_dm.to(k_l.dtype), cache.cur_len)
-        v_l = _write_cols(v_l, v_new_dm.to(v_l.dtype), cache.cur_len)
-        o = _attention_dm(q, k_l.to(q.dtype), v_l.to(q.dtype), self_mask)
-    return h + _dense_row(a.o, o.reshape(b, s, -1), a.tp), k_l, v_l
+    # [B, H, hd, s] into the caches at cur_len.
+    kv = write_kv(layer_kv(cache, "self", layer), k_new.permute(0, 2, 3, 1),
+                  v_new.permute(0, 2, 3, 1), lambda buf, new: _write_cols(buf, new, cache.cur_len))
+    o = attend_kv(q, kv, self_mask)
+    return h + _dense_row(a.o, o.reshape(b, s, -1), a.tp), kv
 
 
 def _decoder_cross_mlp_apply(cfg, h, lp: DecoderLayer, layer: int, cache: DecoderCache,
@@ -655,18 +630,11 @@ def _decoder_cross_mlp_apply(cfg, h, lp: DecoderLayer, layer: int, cache: Decode
         # stay at B rows and the beams fold into the query axis (exact,
         # since cross attention has no causal structure).
         q = q.reshape(b // beam_k, beam_k * s, heads, -1)
-    kc, vc = cache.k_cross[layer], cache.v_cross[layer]
-    w = None
-    if cache.k_cross_scale is not None:
-        args = (q, kc, cache.k_cross_scale[layer], vc, cache.v_cross_scale[layer], cross_mask)
-        if collect_weights:
-            o, w = attention_dm_q8_with_weights(*args)
-        else:
-            o = attention_dm_q8(*args)
-    elif collect_weights:
-        o, w = _attention_dm(q, kc.to(q.dtype), vc.to(q.dtype), cross_mask, with_weights=True)
+    kv = layer_kv(cache, "cross", layer)
+    if collect_weights:
+        o, w = attend_kv(q, kv, cross_mask, with_weights=True)
     else:
-        o = _attention_dm(q, kc.to(q.dtype), vc.to(q.dtype), cross_mask)
+        o, w = attend_kv(q, kv, cross_mask), None
     h = h + _dense_row(a.o, o.reshape(b, s, -1), a.tp)
     # SwiGLU MLP: fc1 -> (h, gate) -> act(gate) * h -> fc2.  A split fc1
     # holds the same block of both halves (parallel.sharding.shard_params).
@@ -718,16 +686,17 @@ def decoder_apply(
     cos, sin = rotary_tables(positions, cfg.rotary_dim, cfg.rope_theta)
     self_mask = _self_mask(cache, s, token_mask, dev)
     cross_mask = cache.memory_mask[:, None, None, :]  # [B, 1, 1, T]
-    weights, k_self, v_self = [], [], []
+    weights, written = [], []
     for layer, lp in enumerate(p.layers):
-        h, k_l, v_l = _decoder_layer_apply(cfg, h, lp, layer, cache, cos, sin, self_mask)
-        k_self.append(k_l)
-        v_self.append(v_l)
+        h, kv = _decoder_layer_apply(cfg, h, lp, layer, cache, cos, sin, self_mask)
+        written.append(kv)
         h, w = _decoder_cross_mlp_apply(cfg, h, lp, layer, cache, cross_mask,
                                         collect_cross_attention, beam_k)
         weights.append(w)
-    if k_self and k_self[0].requires_grad:  # written out of place (_write_cols)
-        cache = cache._replace(k_self=torch.stack(k_self), v_self=torch.stack(v_self))
+    if written and any(x is not None and x.requires_grad for x in written[0]):
+        # _write_cols wrote copies, where autograd records the new keys.
+        k, v, ks, vs = (xs[0] if xs[0] is None else torch.stack(xs) for xs in zip(*written))
+        cache = cache._replace(k_self=k, v_self=v, k_self_scale=ks, v_self_scale=vs)
     h = layer_norm(p.norm, h, cfg.layer_norm_eps)
     # Tied output projection: operands in the compute dtype, float32 result
     # (bf16 products are exact in float32); a split model's vocabulary

@@ -38,10 +38,10 @@ import torch
 from .. import profiling
 from ..core.config import StreamingConfig
 from ..core.device import resolve_device
-from ..ops.int8_kv import Q8_LAUNCHES, attention_dm_q8, dequantize_kv, quantize_kv
+from ..ops.int8_kv import Q8_LAUNCHES, LayerKV, attend_kv, dequantize_kv, layer_kv, write_kv
 from ..ops.rotary import apply_rotary, rotary_tables
 from .layers import ACTIVATIONS, conv1d, dense, layer_norm
-from .moonshine import _attention_dm, _split_heads
+from .moonshine import _split_heads
 from .streaming import (
     CONV_CARRY,
     ENC_STEP,
@@ -215,14 +215,20 @@ def _read(x: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
         (-1, -1) + x.shape[2:]))
 
 
-def _write(buf: torch.Tensor, start: torch.Tensor, val: torch.Tensor, dim: int) -> None:
+def _write(buf: torch.Tensor, start: torch.Tensor, val: torch.Tensor, dim: int) -> torch.Tensor:
     """Per-stream ``dynamic_update_slice`` in place: ``val``'s extent along
-    axis ``dim`` of ``buf`` (the stream axis first) written from ``start``."""
+    axis ``dim`` of ``buf`` (the stream axis first) written from ``start``.
+    Returns ``buf``."""
     size = val.shape[dim]
     rows = _rows(start, size, buf.shape[dim])  # [S, size]
     shape = [1] * buf.dim()
     shape[0], shape[dim] = rows.shape
-    buf.scatter_(dim, rows.reshape(shape).expand(val.shape), val.to(buf.dtype))
+    return buf.scatter_(dim, rows.reshape(shape).expand(val.shape), val.to(buf.dtype))
+
+
+def _put_at(start: torch.Tensor):
+    """``write_kv``'s column rule: each stream's columns from ``start`` [S]."""
+    return lambda buf, new: _write(buf, start, new, buf.dim() - 1)
 
 
 # -- masked frontend: F padded frames per stream, n_valid real ----------------
@@ -286,18 +292,12 @@ def _encode(model: StreamingMoonshine, cfg: StreamingConfig, state: BatchedStrea
     mem_new = torch.where(new_mask[..., None], mem_new, 0.0)
     _write(state.memory, state.mem_len, mem_new, 1)
 
-    quant = state.k_cross_scale is not None
     for layer, lp in enumerate(model.decoder.layers):
         c = lp.cross_attn
         # [S, 128, H, hd] -> dim-major [S, H, hd, 128].
         k = _split_heads(dense(c.k, mem_new), cfg.nheads).permute(0, 2, 3, 1)
         v = _split_heads(dense(c.v, mem_new), cfg.nheads).permute(0, 2, 3, 1)
-        if quant:
-            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
-            _write(state.k_cross_scale[layer], state.mem_len, ks, 2)
-            _write(state.v_cross_scale[layer], state.mem_len, vs, 2)
-        _write(state.k_cross[layer], state.mem_len, k, 3)
-        _write(state.v_cross[layer], state.mem_len, v, 3)
+        write_kv(layer_kv(state, "cross", layer), k, v, _put_at(state.mem_len))
     n_new = n_new.to(state.mem_len.dtype)
     return state._replace(mem_len=state.mem_len + n_new, enc_emitted=state.enc_emitted + n_new)
 
@@ -319,7 +319,7 @@ def _decode_step_batch(
     dec = model.decoder
     S, s = tokens.shape
     dev = tokens.device
-    quant = state.k_self_scale is not None
+    put = _put_at(cache_len)
     h = dec.embed[tokens.long()]  # [S, s, d]
     positions = cache_len[:, None].long() + torch.arange(s, device=dev)  # [S, s]
     # Per-stream tables [S, s, half] (JAX: a vmap of apply_rotary).
@@ -334,30 +334,14 @@ def _decode_step_batch(
         q = apply_rotary(_split_heads(dense(a.q, x), cfg.nheads), cos, sin)  # [S, s, H, hd]
         k_new = apply_rotary(_split_heads(dense(a.k, x), cfg.nheads), cos, sin).permute(0, 2, 3, 1)
         v_new = _split_heads(dense(a.v, x), cfg.nheads).permute(0, 2, 3, 1)  # [S, H, hd, s]
-        k_l, v_l = state.k_self[layer], state.v_self[layer]
-        if quant:
-            (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
-            ks_l, vs_l = state.k_self_scale[layer], state.v_self_scale[layer]
-            for buf, val in ((k_l, kq), (v_l, vq)):
-                _write(buf, cache_len, val, 3)
-            for buf, val in ((ks_l, ks), (vs_l, vs)):
-                _write(buf, cache_len, val, 2)
-            o = attention_dm_q8(q, k_l, ks_l, v_l, vs_l, self_mask)
-        else:
-            _write(k_l, cache_len, k_new, 3)
-            _write(v_l, cache_len, v_new, 3)
-            o = _attention_dm(q, k_l.to(q.dtype), v_l.to(q.dtype), self_mask)
+        o = attend_kv(q, write_kv(layer_kv(state, "self", layer), k_new, v_new, put), self_mask)
         h = h + dense(a.o, o.reshape(S, s, -1))
         x = layer_norm(lp.ln2, h)
         c = lp.cross_attn
         qc = _split_heads(dense(c.q, x), cfg.nheads)
-        kc = state.k_cross[layer][..., :mem_bucket]
-        vc = state.v_cross[layer][..., :mem_bucket]
-        if quant:
-            oc = attention_dm_q8(qc, kc, state.k_cross_scale[layer][..., :mem_bucket], vc,
-                                 state.v_cross_scale[layer][..., :mem_bucket], cross_mask)
-        else:
-            oc = _attention_dm(qc, kc.to(qc.dtype), vc.to(qc.dtype), cross_mask)
+        cross = LayerKV(*(t if t is None else t[..., :mem_bucket]
+                          for t in layer_kv(state, "cross", layer)))
+        oc = attend_kv(qc, cross, cross_mask)
         h = h + dense(c.o, oc.reshape(S, s, -1))
         x = layer_norm(lp.ln3, h)
         hh, gate = torch.chunk(dense(lp.mlp.fc1, x), 2, dim=-1)

@@ -9,6 +9,12 @@ past both attention contractions:
 
 Cache layout is dim-major ``[.., hd, T]`` with scales ``[.., T]``.
 
+This module owns the decoders' KV-cache format: a layer's caches travel
+as one :class:`LayerKV`, :func:`write_kv` stores new keys and values in
+them (quantized where the caches are int8) and :func:`attend_kv` attends
+over them (``attention_dm_q8`` over int8 caches, :func:`attention_dm`
+over float ones).  No decoder branches on the format.
+
 ``attention_dm_q8`` on CUDA tensors launches K5 (``csrc/int8_attention.cu``),
 which reads the int8 caches and their scales in place and folds the
 dequantization into its own products: no float copy of the cache is
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -36,6 +43,63 @@ MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_PER_BLOCK = 232_448  # shared memory one Hopper block may opt into
 _WARPS = 8  # the kernel's 256 threads
+
+
+class LayerKV(NamedTuple):
+    """One layer's dim-major caches [.., hd, T]; the scales [.., T] are
+    set where the caches are int8, None where they are float."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+def layer_kv(caches, kind: str, layer: int) -> LayerKV:
+    """Layer ``layer`` of the ``kind`` ("self" or "cross") caches of a
+    ``DecoderCache`` or a ``BatchedStreamingState``: the fields
+    ``k_<kind>``, ``v_<kind>``, ``k_<kind>_scale`` and ``v_<kind>_scale``."""
+    return LayerKV(*(None if x is None else x[layer]
+                     for x in (getattr(caches, f"{n}_{kind}{s}") for s in ("", "_scale")
+                               for n in "kv")))
+
+
+def write_kv(kv: LayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
+             put: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]) -> LayerKV:
+    """Store a layer's new dim-major K and V [.., hd, s] in its caches:
+    int8 caches take ``quantize_kv``'s values and scales (K and V
+    quantized, then K, V, K's scales and V's written), float caches the
+    values in their dtype.  ``put(buf, new)`` writes ``new`` into the last
+    axis of ``buf`` at the caller's columns and returns the buffer written
+    (a copy where the caller's rule makes one).  Returns the caches
+    written."""
+    if kv.k_scale is None:
+        return kv._replace(k=put(kv.k, k_new.to(kv.k.dtype)), v=put(kv.v, v_new.to(kv.v.dtype)))
+    (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
+    return LayerKV(put(kv.k, kq), put(kv.v, vq), put(kv.k_scale, ks), put(kv.v_scale, vs))
+
+
+def attend_kv(q: torch.Tensor, kv: LayerKV, mask: torch.Tensor | None,
+              with_weights: bool = False):
+    """Attention of q [B, s, H, hd] over a layer's caches [B, H, hd, T]:
+    ``attention_dm_q8`` over int8 caches, :func:`attention_dm` over float
+    caches read in q's dtype.  With ``with_weights`` also returns the
+    float32 softmax weights [B, H, s, T]."""
+    if kv.k_scale is None:
+        return attention_dm(q, kv.k.to(q.dtype), kv.v.to(q.dtype), mask, with_weights)
+    args = (q, kv.k, kv.k_scale, kv.v, kv.v_scale, mask)
+    return attention_dm_q8_with_weights(*args) if with_weights else attention_dm_q8(*args)
+
+
+def attention_dm(q, k, v, mask, with_weights: bool = False):
+    """Attention over float dim-major K/V [B, H, hd, T]; with
+    ``with_weights`` also returns the float32 softmax weights [B, H, s, T]."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bshd,bhdt->bhst", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhst,bhdt->bshd", weights.to(q.dtype), v)
+    return (out, weights) if with_weights else out
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,8 +1,9 @@
 """K5, the fused int8-KV decode attention (``ops/int8_kv.attention_dm_q8``
 on CUDA tensors, ``csrc/int8_attention.cu``), against the plain einsums on
-the same card tensors; and, on the CPU, the wrapper's argument checks and
-its counters.  The plain version itself is held against the JAX package in
-``tests/test_torch_layers.py::test_attention_dm_q8``.
+the same card tensors; and, on the CPU, the wrapper's argument checks, its
+counters, and ``write_kv`` / ``attend_kv`` against the write-then-attend
+sequences the decoders ran themselves.  The plain version itself is held
+against the JAX package in ``tests/test_torch_layers.py::test_attention_dm_q8``.
 
 On the card, without JAX:
     python -m pytest --noconftest tests/test_torch_int8_attention.py -m cuda
@@ -270,3 +271,70 @@ def test_cpu_greedy_span_counts_no_launch():
     greedy_decode(model, TINY, memory, mask, max_tokens=3, kv_int8=True)
     sp = profiling.spans("greedy.decode")[-1]
     assert sp.attrs["q8_launches"] == 0 and sp.attrs["decoder_calls"] >= 1
+
+
+def _attention_dm_before(q, k, v, mask, with_weights):
+    """The float dim-major attention as the Moonshine module held it."""
+    logits = torch.einsum("bshd,bhdt->bhst", q.float(), k.float()) * q.shape[-1] ** -0.5
+    weights = torch.softmax(logits.masked_fill(~mask, -1e9), dim=-1)
+    out = torch.einsum("bhst,bhdt->bshd", weights.to(q.dtype), v)
+    return (out, weights) if with_weights else out
+
+
+def _write_attend_before(q, kv, k_new, v_new, put, mask, with_weights):
+    """A decoder's self-attention block before the format moved behind
+    ``ops/int8_kv.py``: quantize K, then V, write K, V and their scales, K5's
+    plain version; or the float write and the float attention."""
+    if kv.k_scale is None:
+        k, v = put(kv.k, k_new.to(kv.k.dtype)), put(kv.v, v_new.to(kv.v.dtype))
+        return _attention_dm_before(q, k.to(q.dtype), v.to(q.dtype), mask, with_weights)
+    (kq, ks), (vq, vs) = q8.quantize_kv(k_new), q8.quantize_kv(v_new)
+    k, v, k_s, v_s = put(kv.k, kq), put(kv.v, vq), put(kv.k_scale, ks), put(kv.v_scale, vs)
+    fn = q8.attention_dm_q8_with_weights if with_weights else q8.attention_dm_q8
+    return fn(q, k, k_s, v, v_s, mask)
+
+
+@pytest.mark.parametrize("with_weights", [False, True], ids=["out", "weights"])
+@pytest.mark.parametrize("put_kind", ["cursor", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_write_and_attend_are_the_sequences_they_replace(int8, dtype, put_kind, with_weights):
+    """``write_kv`` then ``attend_kv`` leave the same caches and give the
+    same output (and weights), bit for bit, as the sequence each decoder
+    ran: at a host cursor (``moonshine._write_cols``, the offline decoders)
+    and at a per-row start (``streaming_batch._write``, the service)."""
+    from moonshine_tpu_torch.models import moonshine as mm
+    from moonshine_tpu_torch.models import streaming_batch as sb
+
+    b, s, h, hd, t = 3, 2, 2, 8, 12
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn((b, s, h, hd), generator=g).to(dtype)
+    k_new, v_new = (torch.randn((b, h, hd, s), generator=g).to(dtype) for _ in range(2))
+    old_k, old_v = torch.randn((b, h, hd, t), generator=g), torch.randn((b, h, hd, t), generator=g)
+    if int8:
+        (kq, ks), (vq, vs) = q8.quantize_kv(old_k), q8.quantize_kv(old_v)
+        caches = q8.LayerKV(kq, vq, ks, vs)
+    else:
+        caches = q8.LayerKV(old_k.to(dtype), old_v.to(dtype))
+    if put_kind == "cursor":
+        start = torch.full((b,), 5)
+        put = lambda buf, new: mm._write_cols(buf, new, 5)  # noqa: E731
+    else:
+        start = torch.tensor([0, 5, 10])
+        put = lambda buf, new: sb._write(buf, start, new, buf.dim() - 1)  # noqa: E731
+    mask = (torch.arange(t) <= (start[:, None] + torch.arange(s))[..., None])[:, None]
+    mask[1, ..., 7] = False  # a key hidden from every query of row 1
+
+    ref_kv = q8.LayerKV(*(None if x is None else x.clone() for x in caches))
+    expect = _write_attend_before(q, ref_kv, k_new, v_new, put, mask, with_weights)
+    written = q8.write_kv(caches, k_new, v_new, put)
+    got = q8.attend_kv(q, written, mask, with_weights)
+    for x, y in zip(written, ref_kv):
+        assert (x is None and y is None) or torch.equal(x, y)
+    for x, y in zip(got if with_weights else [got], expect if with_weights else [expect]):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    # The writes landed in place, at the rows' columns.
+    cols = start[:, None] + torch.arange(s)
+    new_k = written.k.gather(-1, cols[:, None, None, :].expand(b, h, hd, s))
+    assert written.k.data_ptr() == caches.k.data_ptr()
+    assert torch.equal(new_k, q8.quantize_kv(k_new)[0] if int8 else k_new)

@@ -5,7 +5,7 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout, holds each kernel against its plain PyTorch
-version on the card (K1 to K6; K1 and K2 also: a batch row alone gives the
+version on the card (K1 to K7; K1 and K2 also: a batch row alone gives the
 bits it gets in a batch, and every bf16 and float32 build of them holds tensor-core
 and cp.async instructions, read with cuobjdump), times it beside its bound
 and PyTorch's own call for the same function, drives the offline
@@ -851,18 +851,122 @@ def phase_ln_times(ln) -> dict:
     return out
 
 
+# K7 (ops/int8_kv.write_kv into int8 caches on the card) against the plain
+# chain on the same card tensors (quantize_kv of K and of V, then the column
+# rule's four writes): the caches must be equal, values and scales
+# (tests/test_torch_kv_write.py).  (label, B, H, hd, s, T, rule): the cells'
+# writes.  Base b64's decode step at a host cursor (its one-token prompt
+# gives the same shape); the service's decode step and verify at the draft
+# cap into the 448-column self caches, and its ingest of a 128-frame block
+# into the 3,200-column cross caches, at each stream's int32 cursor;
+# Canary's decode at s=1 and its 5-token prompt at a host cursor.
+KVW_SHAPES = [
+    ("b64 decode", 64, 8, 52, 1, 41, "cursor"),
+    ("serve decode", 32, 11, 64, 1, 448, "rows"),
+    ("serve verify", 32, 11, 64, 129, 448, "rows"),
+    ("serve ingest", 32, 11, 64, 128, 3200, "rows"),
+    ("canary decode", 128, 8, 128, 1, 170, "cursor"),
+    ("canary prefill", 128, 8, 128, 5, 170, "cursor"),
+]
+
+
+def kvw_count() -> int:
+    from moonshine_tpu_torch import profiling
+    from moonshine_tpu_torch.ops.int8_kv import KV_WRITE_LAUNCHES
+
+    return profiling.counter(KV_WRITE_LAUNCHES)
+
+
+def kvw_inputs(b, h, hd, s, t, rule, dtype, seed):
+    """New K and V as the decoders hand them (``[B, s, H, hd]`` permuted to
+    ``[B, H, hd, s]``), int8 caches holding earlier columns, and the
+    rule: a host cursor three columns before the end, or int32 per-row
+    starts spread over the cache, on the card."""
+    from moonshine_tpu_torch.ops import int8_kv as q8
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k_new, v_new = ((torch.randn((b, s, h, hd), device="cuda", generator=g) * spread).to(dtype)
+                    .permute(0, 2, 3, 1) for spread in (3.0, 1.0))
+    kv = q8.LayerKV(*(torch.randint(-127, 128, (b, h, hd, t), device="cuda", generator=g,
+                                    dtype=torch.int8) for _ in range(2)),
+                    *(torch.rand((b, h, t), device="cuda", generator=g) + 0.5 for _ in range(2)))
+    if rule == "cursor":
+        cols = q8.Cursor(t - s - 3)
+    else:
+        cols = q8.RowStarts(torch.randint(0, t - s + 1, (b,), device="cuda", generator=g,
+                                          dtype=torch.int32))
+    return kv, k_new, v_new, cols
+
+
+def kvw_plain(q8, kv, k_new, v_new, cols):
+    """``write_kv``'s plain chain into ``kv``, in place: ``quantize_kv`` of
+    K, then of V, then the rule's four writes."""
+    (kq, ks), (vq, vs) = q8.quantize_kv(k_new), q8.quantize_kv(v_new)
+    return q8.LayerKV(cols(kv.k, kq), cols(kv.v, vq), cols(kv.k_scale, ks), cols(kv.v_scale, vs))
+
+
+def phase_kvw_vs_plain(q8) -> int:
+    """K7 against the plain chain at every shape of KVW_SHAPES, in bf16,
+    fp16 and float32: one launch, and caches equal to the plain chain's.
+    Returns the number of unequal elements (0)."""
+    unequal = 0
+    for label, b, h, hd, s, t, rule in KVW_SHAPES:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            kv, k_new, v_new, cols = kvw_inputs(b, h, hd, s, t, rule, dtype, seed=b + s + t)
+            ref = kvw_plain(q8, q8.LayerKV(*(x.clone() for x in kv)), k_new, v_new, cols)
+            before = kvw_count()
+            got = q8.write_kv(kv, k_new, v_new, cols)
+            torch.cuda.synchronize()
+            wrong = sum(int((x != y).sum()) for x, y in zip(got, ref))
+            unequal += wrong
+            ok = kvw_count() == before + 1 and wrong == 0
+            log(f"  K7 {label} B={b} H={h} hd={hd} s={s} T={t} {rule} {str(dtype)[6:]}: "
+                f"{wrong} unequal values or scales {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"K7 disagrees with the plain chain at {label} {dtype}")
+    return unequal
+
+
+def phase_kvw_times(q8) -> dict:
+    """K7 and its plain chain at every shape of KVW_SHAPES in bf16, beside
+    the bound: each new value read once, each int8 value and scale written
+    once, at HBM_BYTES_PER_S.  Before each timed call the card reads twice
+    its L2 and then spins, as for K5."""
+    scratch = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def before():
+        scratch.sum()
+        torch.cuda._sleep(2_000_000)
+
+    out = {}
+    for label, b, h, hd, s, t, rule in KVW_SHAPES:
+        kv, k_new, v_new, cols = kvw_inputs(b, h, hd, s, t, rule, torch.bfloat16, seed=7)
+        kernel_ms = cuda_time_ms(lambda: q8.write_kv(kv, k_new, v_new, cols), before=before)
+        plain_ms = cuda_time_ms(lambda: kvw_plain(q8, kv, k_new, v_new, cols), before=before)
+        n = b * h * hd * s
+        bytes_moved = 2 * (n * k_new.element_size() + n + 4 * b * h * s)
+        bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        out[label] = {"shape": [b, h, hd, s, t], "rule": rule, "dtype": "bfloat16",
+                      "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bytes": bytes_moved,
+                      "bound_ms": bound_ms, "bound_by": "bytes"}
+        log(f"  K7 {label} B={b} H={h} hd={hd} s={s} T={t} {rule} bf16: kernel {kernel_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes: {bytes_moved / 1e6:.3f} MB)"
+            f" -> {bound_ms / kernel_ms:.1%} of bound")
+    return out
+
+
 @contextlib.contextmanager
-def ln_per_call(module, name: str, per_call: int, what: str):
-    """K6's launches in each call of ``module.name`` (a decoder call) while
-    the block runs; each call must make ``per_call`` (three a decoder layer
-    and the final norm).  Yields the list of counts."""
+def per_call_launches(module, name: str, count, per_call: int, what: str):
+    """A kernel's launches (``count()``, its recorder's counter) in each
+    call of ``module.name`` while the block runs; each call must make
+    ``per_call``.  Yields the list of counts."""
     fn = getattr(module, name)
     counts = []
 
     def counted(*args, **kw):
-        before = ln_count()
+        before = count()
         out = fn(*args, **kw)
-        counts.append(ln_count() - before)
+        counts.append(count() - before)
         return out
 
     setattr(module, name, counted)
@@ -871,8 +975,8 @@ def ln_per_call(module, name: str, per_call: int, what: str):
     finally:
         setattr(module, name, fn)
     if not counts or any(c != per_call for c in counts):
-        raise SystemExit(f"K6 launched {sorted(set(counts))} times a decoder call of {what} "
-                         f"over {len(counts)} calls, not {per_call}")
+        raise SystemExit(f"{what} launched {sorted(set(counts))} times a call of {name} over "
+                         f"{len(counts)} calls, not {per_call}")
 
 
 def synthetic_clip(seconds: float, seed: int) -> np.ndarray:
@@ -1078,8 +1182,10 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
     """encode + greedy_decode at the bench configuration (batched_workload,
     with w8a8 weights if asked): one warm-up and the best of 3.  K5 must
     launch twice a decoder layer a decoder call, in the recorder's counter
-    and in each ``greedy.decode`` span's ``q8_launches``, and K6 three times
-    a decoder layer and once more a decoder call."""
+    and in each ``greedy.decode`` span's ``q8_launches``, K6 three times
+    a decoder layer and once more a decoder call, and K7 once a decoder
+    layer a decoder call, in the counter and in each span's
+    ``kv_write_launches``."""
     from moonshine_tpu_torch import profiling
     from moonshine_tpu_torch.models import moonshine as mm
 
@@ -1092,7 +1198,10 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
     walls, encs, decs = [], [], []
     ln_per = 3 * cfg.decoder_layers + 1
     ln0 = ln_count()
-    with ln_per_call(mm, "decoder_apply", ln_per, "the batched decode") as ln_calls:
+    with (per_call_launches(mm, "decoder_apply", ln_count, ln_per,
+                            "K6 in the batched decode") as ln_calls,
+          per_call_launches(mm, "decoder_apply", kvw_count, cfg.decoder_layers,
+                            "K7 in the batched decode") as kvw_calls):
         for _ in range(3):
             _, res, enc_s, dec_s = run_once(encode, decode)
             walls.append(enc_s + dec_s)
@@ -1105,6 +1214,10 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
     q8_per_call = q8_per_decoder_call(decodes, cfg.decoder_layers, "the batched decode")
     if q8_count() - q8_0 != sum(sp.attrs["q8_launches"] for sp in decodes):
         raise SystemExit("K5's counter and the greedy.decode spans' q8_launches disagree")
+    if any(sp.attrs["kv_write_launches"] != cfg.decoder_layers * sp.attrs["decoder_calls"]
+           for sp in decodes):
+        raise SystemExit("the greedy.decode spans' kv_write_launches are not one a layer a "
+                         "decoder call")
     best = min(walls)
     seconds = BATCHED_SECONDS
     out = {"batch": batch, "seconds": seconds, "max_tokens": max_tokens,
@@ -1116,6 +1229,8 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
            "q8_launches_per_decoder_call": q8_per_call,
            "ln_launches_per_decoder_call": sorted(set(ln_calls)),
            "ln_decoder_calls": len(ln_calls), "ln_launches": ln_count() - ln0,
+           "kvw_launches_per_decoder_call": sorted(set(kvw_calls)),
+           "kvw_launches": sum(kvw_calls),
            "decoder_calls": [sp.attrs["decoder_calls"] for sp in decodes],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  B={batch} x {seconds} s (T={out['frames']}), {max_tokens} tokens, bf16, int8 KV"
@@ -1124,7 +1239,8 @@ def phase_batched(ea, cfg, batch: int, card: str, w8a8: bool = False) -> dict:
         f"{out['audio_s_per_s']:.2f} audio-s/s on {card}; {per_encode:.0f} K1 launches per "
         f"encode, {q8_per_call:.0f} K5 launches per decoder call, K6 launches "
         f"{sorted(set(ln_calls))} in each of {len(ln_calls)} decoder calls "
-        f"({out['ln_launches']} in all); mean tokens {out['mean_tokens']:.1f}")
+        f"({out['ln_launches']} in all), K7 launches {sorted(set(kvw_calls))} in each; mean "
+        f"tokens {out['mean_tokens']:.1f}")
     return out
 
 
@@ -1865,24 +1981,25 @@ def zero_launch_count(fn) -> None:
 
 
 def kernel_launches(ea, bg) -> dict:
-    """K1-K4's launches by wrapper name, K5's as ``int8_attention`` and K6's
-    as ``layer_norm``."""
+    """K1-K4's launches by wrapper name, K5's as ``int8_attention``, K6's
+    as ``layer_norm`` and K7's as ``kv_write``."""
     counts = {c.__name__: launch_count(c) for c in (ea.encoder_attention_packed,
                                                     ea.encoder_attention, bg.gather_kv_rows,
                                                     bg.gather_scale_rows)}
-    return {**counts, "int8_attention": q8_count(), "layer_norm": ln_count()}
+    return {**counts, "int8_attention": q8_count(), "layer_norm": ln_count(),
+            "kv_write": kvw_count()}
 
 
 def reset_launches(ea, bg) -> None:
     from moonshine_tpu_torch import profiling
-    from moonshine_tpu_torch.ops.int8_kv import Q8_LAUNCHES
+    from moonshine_tpu_torch.ops.int8_kv import KV_WRITE_LAUNCHES, Q8_LAUNCHES
     from moonshine_tpu_torch.ops.layer_norm import LN_LAUNCHES
 
     for c in (ea.encoder_attention_packed, ea.encoder_attention, bg.gather_kv_rows,
               bg.gather_scale_rows):
         zero_launch_count(c)
-    profiling.reset_counter(Q8_LAUNCHES)
-    profiling.reset_counter(LN_LAUNCHES)
+    for name in (Q8_LAUNCHES, LN_LAUNCHES, KV_WRITE_LAUNCHES):
+        profiling.reset_counter(name)
 
 
 def phase_serving(card: str) -> dict:
@@ -1906,7 +2023,13 @@ def phase_serving(card: str) -> dict:
     update_ms, final_ms, events_n = [], [], 0
     ln_per = 3 * STREAMING_ARCHS["medium_streaming"].depth + 1
     t0 = time.perf_counter()
-    with ln_per_call(sb, "_decode_step_batch", ln_per, "the service") as ln_calls:
+    depth = STREAMING_ARCHS["medium_streaming"].depth
+    with (per_call_launches(sb, "_decode_step_batch", ln_count, ln_per,
+                            "K6 in the service") as ln_calls,
+          per_call_launches(sb, "_decode_step_batch", kvw_count, depth,
+                            "K7 in the service's decoder calls") as kvw_calls,
+          per_call_launches(sb, "_encode", kvw_count, depth,
+                            "K7 in the service's ingest") as kvw_ingests):
         for _ in range(SERVING_UPDATES):
             for c in range(K):
                 for i in range(c * per, (c + 1) * per):
@@ -1923,6 +2046,10 @@ def phase_serving(card: str) -> dict:
                if sp.start_ns >= t_window and sp.attrs["decode"]]
     q8_per_call = q8_per_decoder_call(updates, STREAMING_ARCHS["medium_streaming"].depth,
                                       "the service's decoding updates")
+    if any(sp.attrs["kv_write_launches"] != depth * (sp.attrs["decoder_calls"] + sp.attrs["passes"])
+           for sp in updates):
+        raise SystemExit("the service.update spans' kv_write_launches are not one a layer a "
+                         "decoder call and an ingest pass")
     # The state's bytes as its shapes give them, against the allocator's
     # count for one more cohort's state allocated alone.
     reckoned = state_bytes(svc.cohorts[0].state)
@@ -1942,6 +2069,9 @@ def phase_serving(card: str) -> dict:
            "q8_launches_per_decoder_call": q8_per_call,
            "ln_launches_per_decoder_call": sorted(set(ln_calls)),
            "ln_decoder_calls": len(ln_calls),
+           "kvw_launches_per_decoder_call": sorted(set(kvw_calls)),
+           "kvw_launches_per_ingest": sorted(set(kvw_ingests)),
+           "kvw_launches": sum(kvw_calls) + sum(kvw_ingests),
            "decoder_calls": [sp.attrs["decoder_calls"] for sp in updates]}
     log(f"  cut: {SERVING_UPDATES} update periods (the bench runs 40); the stagger's pre-fill "
         "drained with ingest-only updates (the bench decodes them)")
@@ -1952,7 +2082,8 @@ def phase_serving(card: str) -> dict:
         f"final-update latency p50 {final_p50}; {len(final_ms)} finals, {events_n} events; "
         f"peak allocated {peak / 1e9:.3f} GB on {card}; {q8_per_call:.0f} K5 launches per "
         f"decoder call over {len(updates)} decoding updates, K6 launches {sorted(set(ln_calls))} "
-        f"in each of {len(ln_calls)} decoder calls")
+        f"in each of {len(ln_calls)} decoder calls, K7 launches {sorted(set(kvw_calls))} in each "
+        f"and {sorted(set(kvw_ingests))} in each of {len(kvw_ingests)} ingest passes")
     log("  state per cohort of " + f"{per} streams: " + ", ".join(
         f"{k} {v / 1e6:.1f} MB" for k, v in reckoned.items())
         + f"; the allocator took {allocated / 1e6:.1f} MB for one more, on {card}")
@@ -4840,6 +4971,8 @@ def main() -> int:
     q8_err = phase_q8_vs_plain(q8)
     log("[kernel vs plain] K6")
     ln_err = phase_ln_vs_plain(ln)
+    log("[kernel vs plain] K7")
+    kvw_unequal = phase_kvw_vs_plain(q8)
     log("[kernel SASS] K1, K2")
     sass = phase_sass(_build)
     log("[kernel times] K1")
@@ -4854,6 +4987,8 @@ def main() -> int:
     q8_times = phase_q8_times(q8)
     log("[kernel times] K6")
     ln_times = phase_ln_times(ln)
+    log("[kernel times] K7")
+    kvw_times = phase_kvw_times(q8)
 
     with tempfile.TemporaryDirectory() as tmp:
         tok_path = os.path.join(tmp, "tokenizer.bin")
@@ -5165,10 +5300,28 @@ def main() -> int:
         "shape": ln_main["shape"], "ms": ln_main["kernel_ms"], "kernel_ms": ln_main["kernel_ms"],
         "plain_ms": ln_main["plain_ms"], "library_ms": ln_main["library_ms"],
         "bound_ms": ln_main["bound_ms"], "bound_by": ln_main["bound_by"], "shapes": ln_times})
+    kvw_main = kvw_times["b64 decode"]
+    kernels.append({
+        "name": "kv_write", "route": "cuda", "source": "moonshine_tpu_torch/csrc/kv_write.cu",
+        "replaces": "none: moonshine_tpu/ops/int8_kv.py quantize_kv and the decoders' "
+                    "dynamic_update_slice are XLA code",
+        "launches_per_decoder_call": {
+            "batched offline decode": batched["kvw_launches_per_decoder_call"],
+            "w8a8 batched": w8a8_batched["kvw_launches_per_decoder_call"],
+            "serving": serving["kvw_launches_per_decoder_call"],
+            "serving ingest pass": serving["kvw_launches_per_ingest"]},
+        "launches_by_path": {"batched offline decode": batched["kvw_launches"],
+                             "w8a8 batched": w8a8_batched["kvw_launches"],
+                             **on_counted_paths("kv_write")},
+        "unequal": kvw_unequal, "tol": "exact",
+        "shape": kvw_main["shape"], "ms": kvw_main["kernel_ms"],
+        "kernel_ms": kvw_main["kernel_ms"], "plain_ms": kvw_main["plain_ms"],
+        "bound_ms": kvw_main["bound_ms"], "bound_by": kvw_main["bound_by"], "shapes": kvw_times})
     record = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "kernel_times": times, "hm_times": hm_times, "f32_times": f32_times,
               "batch_independence": batch_independence, "sass": sass,
               "gather_times": gather_times, "q8_times": q8_times, "ln_times": ln_times,
+              "kvw_times": kvw_times,
               "main_path": main_path, "reference_check": ref, "word_timestamps": words,
               "beam_reference_check": beam_ref, "speculative_reference": spec_ref,
               "batched": batched, "beam": beam, "sharded": sharded,

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from .. import profiling
-from ..ops.int8_kv import Q8_LAUNCHES
+from ..ops.int8_kv import KV_WRITE_LAUNCHES, Q8_LAUNCHES
 
 
 class GreedyResult(NamedTuple):
@@ -43,17 +43,17 @@ def greedy_decode(
     span_parent: profiling.Span | None = None,
 ) -> GreedyResult:
     """Records a coarse ``greedy.decode`` span (``batch``, ``prompt_tokens``,
-    ``decoder_calls``, ``read_ns``, ``q8_launches``: K5's launches in the
-    call) under ``span_parent``; with fine spans on, a ``greedy.prefill``
-    and a ``greedy.step`` a decoder call under it, each ending with its
-    ``greedy.read``."""
+    ``decoder_calls``, ``read_ns``, ``q8_launches`` and ``kv_write_launches``:
+    K5's and K7's launches in the call) under ``span_parent``; with fine
+    spans on, a ``greedy.prefill`` and a ``greedy.step`` a decoder call under
+    it, each ending with its ``greedy.read``."""
     b = memory.shape[0]
     dev = memory.device
     eos = cfg.eos_token_id
     prompt = model.decoder_prompt(cfg)
     sp = profiling.begin("greedy.decode", span_parent, batch=b, prompt_tokens=len(prompt),
                          read_ns=0)
-    q8 = profiling.counter(Q8_LAUNCHES)
+    q8, kvw = profiling.counter(Q8_LAUNCHES), profiling.counter(KV_WRITE_LAUNCHES)
     pre = profiling.child("greedy.prefill", sp)
     k_cross, v_cross = model.compute_cross_kv(cfg, memory)
     # The prompt's positions, then one a token.
@@ -95,5 +95,6 @@ def greedy_decode(
         step += 1
     # Stopped at max_tokens, the last step was never read.
     sp.enqueued = dev.type == "cuda" and step >= max_tokens
-    profiling.end(sp, decoder_calls=step, q8_launches=profiling.counter(Q8_LAUNCHES) - q8)
+    profiling.end(sp, decoder_calls=step, q8_launches=profiling.counter(Q8_LAUNCHES) - q8,
+                  kv_write_launches=profiling.counter(KV_WRITE_LAUNCHES) - kvw)
     return GreedyResult(tokens, lengths)

@@ -64,7 +64,7 @@ from torch import nn
 
 from .. import profiling
 from ..core.device import resolve_device
-from ..ops.int8_kv import attend_kv, layer_kv, write_kv
+from ..ops.int8_kv import Cursor, attend_kv, layer_kv, write_kv
 from ..ops.mel import nemo_frames, nemo_log_mel
 from . import moonshine as mm
 from .layers import Conv1d, Conv2d, Dense, Norm, _param, _uniform, dense_init
@@ -486,22 +486,19 @@ def absolute_positions(n: int, d: int, device: torch.device, dtype: torch.dtype)
 
 
 def _self_attention(cfg: CanaryArchConfig, h, lp: mm.DecoderLayer, layer: int,
-                    cache: mm.DecoderCache, mask) -> torch.Tensor:
+                    cache: mm.DecoderCache, mask):
     """Self-attention over s new tokens; writes their keys and values into
-    the layer's cache at [cur_len, cur_len + s)."""
+    the layer's cache at [cur_len, cur_len + s).  Returns (h, the layer's
+    self caches as written)."""
     b, s, _ = h.shape
     a, heads, hd = lp.self_attn, cfg.n_heads, cfg.head_dim
     x = _ln(lp.ln1, h, cfg.layer_norm_eps)
     q = _linear(a.q, x).view(b, s, heads, hd)
     k = _linear(a.k, x).view(b, s, heads, hd).permute(0, 2, 3, 1)  # [B, H, hd, s]
     v = _linear(a.v, x).view(b, s, heads, hd).permute(0, 2, 3, 1)
-
-    def put(buf, new):
-        buf[..., cache.cur_len:cache.cur_len + s] = new
-        return buf
-
-    o = attend_kv(q, write_kv(layer_kv(cache, "self", layer), k, v, put), mask)
-    return h + _linear(a.o, o.reshape(b, s, -1))
+    kv = write_kv(layer_kv(cache, "self", layer), k, v, Cursor(cache.cur_len))
+    o = attend_kv(q, kv, mask)
+    return h + _linear(a.o, o.reshape(b, s, -1)), kv
 
 
 def _cross_attention_ffn(cfg: CanaryArchConfig, h, lp: mm.DecoderLayer, layer: int,
@@ -522,9 +519,10 @@ def decoder_apply(
     cache: mm.DecoderCache,
 ) -> tuple[torch.Tensor, mm.DecoderCache, None]:
     """Run the decoder over ``s`` new tokens at positions cur_len ..
-    cur_len + s - 1, writing their keys and values into the cache in
-    place.  Returns (logits [B, s, V] float32, the cache with ``cur_len``
-    advanced by s, None), as ``moonshine.decoder_apply`` does."""
+    cur_len + s - 1, writing their keys and values into the cache in place
+    (into new self caches where autograd records the new keys).  Returns
+    (logits [B, s, V] float32, the cache with ``cur_len`` advanced by s,
+    None), as ``moonshine.decoder_apply`` does."""
     b, s = tokens.shape
     max_len = cache.k_self.shape[4]
     if cache.cur_len + s > min(max_len, cfg.max_positions):
@@ -536,9 +534,12 @@ def decoder_apply(
             cfg.layer_norm_eps)
     self_mask = mm._self_mask(cache, s, None, dev)
     cross_mask = cache.memory_mask[:, None, None, :]
+    written = []
     for layer, lp in enumerate(p.layers):
-        h = _self_attention(cfg, h, lp, layer, cache, self_mask)
+        h, kv = _self_attention(cfg, h, lp, layer, cache, self_mask)
+        written.append(kv)
         h = _cross_attention_ffn(cfg, h, lp, layer, cache, cross_mask)
+    cache = mm._with_written_self(cache, written)
     h = _ln(p.norm, h, cfg.layer_norm_eps)
     logits = h.float() @ p.embed.float().t() + p.head.bias.float()
     return logits, cache._replace(cur_len=cache.cur_len + s), None

@@ -51,7 +51,7 @@ from ..ops.encoder_attention import (
     encoder_attention_packed,
     encoder_attention_packed_sharded,
 )
-from ..ops.int8_kv import attend_kv, layer_kv, quantize_kv, write_kv
+from ..ops.int8_kv import Cursor, attend_kv, layer_kv, quantize_kv, write_kv
 from ..ops.rotary import (
     apply_rotary,
     apply_rotary_fullwidth,
@@ -588,15 +588,15 @@ def _self_mask(cache: DecoderCache, s: int, token_mask: torch.Tensor | None,
     return mask
 
 
-def _write_cols(buf: torch.Tensor, new: torch.Tensor, start: int) -> torch.Tensor:
-    """``new`` written into the last axis of ``buf`` at ``start``: in place,
-    or, where autograd records ``new``, into a copy (the layers' caches are
-    views of one tensor, so an in-place write would change what an earlier
-    layer saved for its backward)."""
-    if torch.is_grad_enabled() and new.requires_grad:
-        return torch.slice_scatter(buf, new, dim=-1, start=start, end=start + new.shape[-1])
-    buf[..., start:start + new.shape[-1]] = new
-    return buf
+def _with_written_self(cache: DecoderCache, written) -> DecoderCache:
+    """``cache`` with the self caches its layers wrote (``written``, one
+    ``LayerKV`` a layer): unchanged where the cursor wrote in place, new
+    stacked caches where autograd recorded the new keys and the cursor wrote
+    copies (``int8_kv.Cursor``) in any layer."""
+    if any(x is not None and x.requires_grad for kv in written for x in kv):
+        k, v, ks, vs = (xs[0] if xs[0] is None else torch.stack(xs) for xs in zip(*written))
+        return cache._replace(k_self=k, v_self=v, k_self_scale=ks, v_self_scale=vs)
+    return cache
 
 
 def _decoder_layer_apply(cfg, h, lp: DecoderLayer, layer: int, cache: DecoderCache,
@@ -613,7 +613,7 @@ def _decoder_layer_apply(cfg, h, lp: DecoderLayer, layer: int, cache: DecoderCac
     v_new = _split_heads(dense(a.v, x), _heads(a.v, hd))
     # [B, H, hd, s] into the caches at cur_len.
     kv = write_kv(layer_kv(cache, "self", layer), k_new.permute(0, 2, 3, 1),
-                  v_new.permute(0, 2, 3, 1), lambda buf, new: _write_cols(buf, new, cache.cur_len))
+                  v_new.permute(0, 2, 3, 1), Cursor(cache.cur_len))
     o = attend_kv(q, kv, self_mask)
     return h + _dense_row(a.o, o.reshape(b, s, -1), a.tp), kv
 
@@ -693,10 +693,7 @@ def decoder_apply(
         h, w = _decoder_cross_mlp_apply(cfg, h, lp, layer, cache, cross_mask,
                                         collect_cross_attention, beam_k)
         weights.append(w)
-    if written and any(x is not None and x.requires_grad for x in written[0]):
-        # _write_cols wrote copies, where autograd records the new keys.
-        k, v, ks, vs = (xs[0] if xs[0] is None else torch.stack(xs) for xs in zip(*written))
-        cache = cache._replace(k_self=k, v_self=v, k_self_scale=ks, v_self_scale=vs)
+    cache = _with_written_self(cache, written)
     h = layer_norm(p.norm, h, cfg.layer_norm_eps)
     # Tied output projection: operands in the compute dtype, float32 result
     # (bf16 products are exact in float32); a split model's vocabulary

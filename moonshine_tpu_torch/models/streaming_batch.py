@@ -38,7 +38,8 @@ import torch
 from .. import profiling
 from ..core.config import StreamingConfig
 from ..core.device import resolve_device
-from ..ops.int8_kv import Q8_LAUNCHES, LayerKV, attend_kv, dequantize_kv, layer_kv, write_kv
+from ..ops.int8_kv import (KV_WRITE_LAUNCHES, Q8_LAUNCHES, LayerKV, RowStarts, attend_kv,
+                           dequantize_kv, layer_kv, write_kv)
 from ..ops.rotary import apply_rotary, rotary_tables
 from .layers import ACTIVATIONS, conv1d, dense, layer_norm
 from .moonshine import _split_heads
@@ -226,11 +227,6 @@ def _write(buf: torch.Tensor, start: torch.Tensor, val: torch.Tensor, dim: int) 
     return buf.scatter_(dim, rows.reshape(shape).expand(val.shape), val.to(buf.dtype))
 
 
-def _put_at(start: torch.Tensor):
-    """``write_kv``'s column rule: each stream's columns from ``start`` [S]."""
-    return lambda buf, new: _write(buf, start, new, buf.dim() - 1)
-
-
 # -- masked frontend: F padded frames per stream, n_valid real ----------------
 
 def _frontend(model: StreamingMoonshine, cfg: StreamingConfig, state: BatchedStreamingState,
@@ -297,7 +293,7 @@ def _encode(model: StreamingMoonshine, cfg: StreamingConfig, state: BatchedStrea
         # [S, 128, H, hd] -> dim-major [S, H, hd, 128].
         k = _split_heads(dense(c.k, mem_new), cfg.nheads).permute(0, 2, 3, 1)
         v = _split_heads(dense(c.v, mem_new), cfg.nheads).permute(0, 2, 3, 1)
-        write_kv(layer_kv(state, "cross", layer), k, v, _put_at(state.mem_len))
+        write_kv(layer_kv(state, "cross", layer), k, v, RowStarts(state.mem_len))
     n_new = n_new.to(state.mem_len.dtype)
     return state._replace(mem_len=state.mem_len + n_new, enc_emitted=state.enc_emitted + n_new)
 
@@ -319,7 +315,7 @@ def _decode_step_batch(
     dec = model.decoder
     S, s = tokens.shape
     dev = tokens.device
-    put = _put_at(cache_len)
+    cols = RowStarts(cache_len)
     h = dec.embed[tokens.long()]  # [S, s, d]
     positions = cache_len[:, None].long() + torch.arange(s, device=dev)  # [S, s]
     # Per-stream tables [S, s, half] (JAX: a vmap of apply_rotary).
@@ -334,7 +330,7 @@ def _decode_step_batch(
         q = apply_rotary(_split_heads(dense(a.q, x), cfg.nheads), cos, sin)  # [S, s, H, hd]
         k_new = apply_rotary(_split_heads(dense(a.k, x), cfg.nheads), cos, sin).permute(0, 2, 3, 1)
         v_new = _split_heads(dense(a.v, x), cfg.nheads).permute(0, 2, 3, 1)  # [S, H, hd, s]
-        o = attend_kv(q, write_kv(layer_kv(state, "self", layer), k_new, v_new, put), self_mask)
+        o = attend_kv(q, write_kv(layer_kv(state, "self", layer), k_new, v_new, cols), self_mask)
         h = h + dense(a.o, o.reshape(S, s, -1))
         x = layer_norm(lp.ln2, h)
         c = lp.cross_attn
@@ -412,13 +408,28 @@ def service_update_meta(
     rows are (n_frames, reset, is_final, draft_len, budget, decode_mask),
     one host-to-device copy per update instead of six.  ``span``, the
     service update's (its ``decoder_calls``, ``read_ns`` and
-    ``q8_launches`` set to 0 when it opened), counts the call's decoder
-    calls, blocked reads and K5 launches, and holds its fine spans (``service.ingest``, ``service.verify``,
-    ``service.step``, ``service.read``)."""
+    ``q8_launches`` and ``kv_write_launches`` set to 0 when it opened),
+    counts the call's decoder calls, blocked reads, K5 launches and K7
+    launches, and holds its fine spans (``service.ingest``,
+    ``service.verify``, ``service.step``, ``service.read``)."""
     return _with_packed(_service_update_impl(
         model, cfg, state, chunk, meta[0], meta[1] != 0, meta[2] != 0, draft, meta[3],
         meta[4], meta[5] != 0, mem_bucket, draft_cap, enc_passes, decode, decode_mem_bucket,
         span))
+
+
+_SPAN_LAUNCHES = {"q8_launches": Q8_LAUNCHES, "kv_write_launches": KV_WRITE_LAUNCHES}
+
+
+def _launch_counts() -> dict:
+    return {attr: profiling.counter(c) for attr, c in _SPAN_LAUNCHES.items()}
+
+
+def _count_launches(span: profiling.Span | None, before: dict) -> None:
+    """Add the K5 and K7 launches since ``before`` to the span's counts."""
+    if span is not None:
+        for attr, c in _SPAN_LAUNCHES.items():
+            span.attrs[attr] += profiling.counter(c) - before[attr]
 
 
 def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingState,
@@ -430,7 +441,7 @@ def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingSta
     # decode_mem_bucket columns of the cross caches; the caller guarantees
     # that every stream's memory fits there after this update's encode.
     dmb = mem_bucket if decode_mem_bucket is None else min(decode_mem_bucket, mem_bucket)
-    q8 = profiling.counter(Q8_LAUNCHES)
+    launched = _launch_counts()
     ingest = profiling.child("service.ingest", span)
     state = _mask_reset(state, reset)
     state = _frontend(model, cfg, state, chunk, n_frames)
@@ -448,6 +459,7 @@ def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingSta
     eos = cfg.eos_id
     i32 = torch.int32
     if not decode:
+        _count_launches(span, launched)
         return ServiceUpdateOut(
             tokens=torch.full((S, cfg.max_seq_len), eos, dtype=i32, device=dev),
             counts=torch.zeros((S,), dtype=i32, device=dev), state=state)
@@ -506,6 +518,6 @@ def _service_update_impl(model, cfg: StreamingConfig, state: BatchedStreamingSta
         calls += 1
     if span is not None:
         span.attrs["decoder_calls"] += calls
-        span.attrs["q8_launches"] += profiling.counter(Q8_LAUNCHES) - q8
+    _count_launches(span, launched)
     return ServiceUpdateOut(tokens=tokens, counts=count, state=state._replace(cache_len=cache_len),
                             n_accept=n_accept)

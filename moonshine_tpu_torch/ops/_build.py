@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("encoder_attention", "beam_gather", "int8_attention", "layer_norm")
+KERNELS = ("encoder_attention", "beam_gather", "int8_attention", "layer_norm", "kv_write")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

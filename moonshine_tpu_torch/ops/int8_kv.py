@@ -11,9 +11,19 @@ Cache layout is dim-major ``[.., hd, T]`` with scales ``[.., T]``.
 
 This module owns the decoders' KV-cache format: a layer's caches travel
 as one :class:`LayerKV`, :func:`write_kv` stores new keys and values in
-them (quantized where the caches are int8) and :func:`attend_kv` attends
-over them (``attention_dm_q8`` over int8 caches, :func:`attention_dm`
-over float ones).  No decoder branches on the format.
+them (quantized where the caches are int8) at the columns of a rule this
+module also owns (:class:`Cursor`, one host start for every row;
+:class:`RowStarts`, a device start per row), and :func:`attend_kv`
+attends over them (``attention_dm_q8`` over int8 caches,
+:func:`attention_dm` over float ones).  No decoder branches on the format.
+
+``write_kv`` into int8 caches on CUDA tensors launches K7
+(``csrc/kv_write.cu``): ``quantize_kv`` of K and of V and the four writes
+in one launch a layer, reading the new K/V and the per-row starts in place.
+It counts each launch in the recorder's ``launches.kv_write``
+(:data:`KV_WRITE_LAUNCHES`).  On CPU tensors it runs ``quantize_kv`` and
+the rule's writes; K7 gives the same values and scales as that chain on
+the card, bit for bit.
 
 ``attention_dm_q8`` on CUDA tensors launches K5 (``csrc/int8_attention.cu``),
 which reads the int8 caches and their scales in place and folds the
@@ -39,10 +49,14 @@ from . import _build
 
 NEG_INF = -1e9
 Q8_LAUNCHES = "launches.int8_attention"  # the recorder's count of K5 launches
+KV_WRITE_LAUNCHES = "launches.kv_write"  # the recorder's count of K7 launches
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_PER_BLOCK = 232_448  # shared memory one Hopper block may opt into
 _WARPS = 8  # the kernel's 256 threads
+MAX_WRITE_HEAD_DIM = 256  # the widest column K7 takes (csrc/kv_write.cu's kMaxHeadDim)
+_WRITE_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_START_DTYPE_CODES = {torch.int32: 1, torch.int64: 2}  # 0: the host cursor
 
 
 class LayerKV(NamedTuple):
@@ -63,19 +77,60 @@ def layer_kv(caches, kind: str, layer: int) -> LayerKV:
                                for n in "kv")))
 
 
+class Cursor(NamedTuple):
+    """``write_kv``'s column rule at a host cursor: columns [start, start + s)
+    of every row (the offline decoders' ``cur_len``)."""
+    start: int
+
+    def __call__(self, buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+        """``new`` written into the last axis of ``buf`` at ``start``: in
+        place, or, where autograd records ``new``, into a copy (the layers'
+        caches are views of one tensor, so an in-place write would change
+        what an earlier layer saved for its backward)."""
+        end = self.start + new.shape[-1]
+        if torch.is_grad_enabled() and new.requires_grad:
+            return torch.slice_scatter(buf, new, dim=-1, start=self.start, end=end)
+        buf[..., self.start:end] = new
+        return buf
+
+
+class RowStarts(NamedTuple):
+    """``write_kv``'s column rule at per-row starts: row b's columns from
+    ``start[b]`` (an int32 or int64 [B] tensor on the caches' device),
+    clamped to [0, T - s] as XLA clamps a dynamic update slice's start (the
+    streaming service's cursors)."""
+    start: torch.Tensor
+
+    def __call__(self, buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+        """``new`` scattered into the last axis of ``buf`` [B, .., T] in
+        place, at each row's columns; returns ``buf``."""
+        s = new.shape[-1]
+        cols = self.start.long().clamp(0, buf.shape[-1] - s)[:, None] + torch.arange(
+            s, device=buf.device)  # [B, s]
+        cols = cols.reshape(cols.shape[:1] + (1,) * (buf.dim() - 2) + cols.shape[1:])
+        return buf.scatter_(-1, cols.expand(new.shape), new.to(buf.dtype))
+
+
 def write_kv(kv: LayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
-             put: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]) -> LayerKV:
-    """Store a layer's new dim-major K and V [.., hd, s] in its caches:
-    int8 caches take ``quantize_kv``'s values and scales (K and V
-    quantized, then K, V, K's scales and V's written), float caches the
-    values in their dtype.  ``put(buf, new)`` writes ``new`` into the last
-    axis of ``buf`` at the caller's columns and returns the buffer written
-    (a copy where the caller's rule makes one).  Returns the caches
-    written."""
+             cols: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]) -> LayerKV:
+    """Store a layer's new dim-major K and V [.., hd, s] in its caches at
+    the columns of ``cols``: int8 caches take ``quantize_kv``'s values and
+    scales, through a :class:`Cursor` or a :class:`RowStarts` (K7 on CUDA
+    tensors; on CPU tensors K and V quantized, then K, V, K's scales and V's
+    written); float caches take the values in their dtype, through any
+    ``cols(buf, new)`` that writes ``new`` into the last axis of ``buf`` and
+    returns the buffer written (a copy where the rule makes one).  Returns
+    the caches written."""
     if kv.k_scale is None:
-        return kv._replace(k=put(kv.k, k_new.to(kv.k.dtype)), v=put(kv.v, v_new.to(kv.v.dtype)))
+        return kv._replace(k=cols(kv.k, k_new.to(kv.k.dtype)), v=cols(kv.v, v_new.to(kv.v.dtype)))
+    if not isinstance(cols, (Cursor, RowStarts)):
+        raise TypeError(f"write_kv: int8 caches take a Cursor or RowStarts column rule; got "
+                        f"{type(cols).__name__}")
+    if k_new.device.type != "cpu":
+        _launch_write(kv, k_new, v_new, cols)
+        return kv
     (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
-    return LayerKV(put(kv.k, kq), put(kv.v, vq), put(kv.k_scale, ks), put(kv.v_scale, vs))
+    return LayerKV(cols(kv.k, kq), cols(kv.v, vq), cols(kv.k_scale, ks), cols(kv.v_scale, vs))
 
 
 def attend_kv(q: torch.Tensor, kv: LayerKV, mask: torch.Tensor | None,
@@ -107,7 +162,10 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
     x: [..., hd, t] (dim-major) -> (q int8 [..., hd, t], scale f32 [..., t])
     with scale = amax over hd / 127 (1.0 where the column is all zero).
-    ``torch.round`` rounds half to even, as ``jnp.round`` does.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.  On a CUDA
+    tensor PyTorch computes ``amax / 127.0`` as the product with 1/127
+    rounded to float32 (on the CPU it divides), so a scale's last bit may
+    differ between the devices; K7 gives the card's.
     """
     xf = x.float()
     amax = xf.abs().amax(dim=-2)
@@ -235,6 +293,89 @@ def _launch(q, k_q, k_s, v_q, v_s, mask) -> torch.Tensor:
                            f"H={h}, hd={hd}, T={t}, {q.dtype})")
     profiling.count(Q8_LAUNCHES)
     return out
+
+
+def _check_write(kv: LayerKV, k_new, v_new, cols) -> None:
+    """What K7 takes: shapes, dtypes, strides, the rule's start, one CUDA
+    device; raised before any launch."""
+    k, v, k_s, v_s = kv
+    if k_new.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"write_kv: the kernel takes K/V [B, H, hd, s] and caches [B, H, hd, T]; "
+                         f"got {tuple(k_new.shape)} and {tuple(k.shape)}")
+    b, h, hd, s = k_new.shape
+    t = k.shape[3]
+    if v_new.shape != k_new.shape or tuple(k.shape) != (b, h, hd, t) or v.shape != k.shape:
+        raise ValueError(f"write_kv: K/V must be [B, H, hd, s] = {(b, h, hd, s)} and the caches "
+                         f"[B, H, hd, T]; got {tuple(v_new.shape)}, {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if tuple(k_s.shape) != (b, h, t) or v_s.shape != k_s.shape:
+        raise ValueError(f"write_kv: the scales must be [B, H, T] = {(b, h, t)}; got "
+                         f"{tuple(k_s.shape)} and {tuple(v_s.shape)}")
+    if k_new.dtype not in _WRITE_DTYPE_CODES or v_new.dtype != k_new.dtype:
+        raise TypeError(f"write_kv: the kernel takes K and V in one of "
+                        f"{list(_WRITE_DTYPE_CODES)}; got {k_new.dtype} and {v_new.dtype}")
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError(f"write_kv: the caches must be int8; got {k.dtype} and {v.dtype}")
+    if k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise TypeError(f"write_kv: the scales must be float32; got {k_s.dtype} and {v_s.dtype}")
+    if hd > MAX_WRITE_HEAD_DIM or s > t:
+        raise ValueError(f"write_kv: the kernel takes head_dim <= {MAX_WRITE_HEAD_DIM} and s <= T; "
+                         f"got head_dim {hd}, s {s}, T {t}")
+    if any(x.stride(-1) != 1 for x in kv):
+        raise ValueError("write_kv: the caches and scales must have T stride 1")
+    if torch.is_grad_enabled() and (k_new.requires_grad or v_new.requires_grad):
+        raise RuntimeError("write_kv: the kernel has no backward, and K or V requires grad")
+    tensors = [k_new, v_new, *kv]
+    if isinstance(cols, Cursor):
+        if not 0 <= cols.start <= t - s:
+            raise ValueError(f"write_kv: columns [{cols.start}, {cols.start + s}) lie outside "
+                             f"the caches' {t}")
+    else:
+        if cols.start.dtype not in _START_DTYPE_CODES or tuple(cols.start.shape) != (b,):
+            raise TypeError(f"write_kv: per-row starts must be int32 or int64 [B] = [{b}]; got "
+                            f"{cols.start.dtype} {tuple(cols.start.shape)}")
+        tensors.append(cols.start)
+    if any(x.device != k_new.device for x in tensors):
+        raise ValueError("write_kv: K/V, the caches, their scales and the starts must lie on one "
+                         "device")
+    if k_new.device.type != "cuda":
+        raise ValueError(f"write_kv: no kernel for device {k_new.device}")
+
+
+@functools.cache
+def _write_kernel():
+    """K7's C entry point, built at first use, with its signature declared."""
+    fn = _build.load("kv_write").kv_write
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_write(kv: LayerKV, k_new, v_new, cols) -> None:
+    """Check what K7 takes, launch it on K's stream (one launch: K and V,
+    values and scales), raise on a launch error.  Reads K, V and the
+    per-row starts in place through their strides."""
+    _check_write(kv, k_new, v_new, cols)
+    b, h, hd, s = k_new.shape
+    if k_new.numel() == 0:
+        return
+    k, v, k_s, v_s = kv
+    rows = isinstance(cols, RowStarts)
+    strides = (*k_new.stride(), *v_new.stride(), *k.stride()[:3], *v.stride()[:3],
+               *k_s.stride()[:2], *v_s.stride()[:2], cols.start.stride(0) if rows else 0)
+    with torch.cuda.device(k_new.device):
+        stream = torch.cuda.current_stream(k_new.device).cuda_stream
+        rc = _write_kernel()(
+            k_new.data_ptr(), v_new.data_ptr(), k.data_ptr(), v.data_ptr(), k_s.data_ptr(),
+            v_s.data_ptr(), cols.start.data_ptr() if rows else None,
+            (ctypes.c_longlong * 5)(b, h, hd, s, k.shape[3]), (ctypes.c_longlong * 19)(*strides),
+            _WRITE_DTYPE_CODES[k_new.dtype], _START_DTYPE_CODES[cols.start.dtype] if rows else 0,
+            0 if rows else cols.start, stream)
+    if rc != 0:
+        raise RuntimeError(f"write_kv launch failed with CUDA error {rc} (B={b}, H={h}, hd={hd}, "
+                           f"s={s}, T={k.shape[3]}, {k_new.dtype})")
+    profiling.count(KV_WRITE_LAUNCHES)
 
 
 def attention_dm_q8(

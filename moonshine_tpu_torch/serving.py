@@ -246,7 +246,7 @@ class StreamingService:
         the slot loop, the mirror and the uploads.
         """
         sp = profiling.begin("service.update", streams=self.S, decode=int(decode_tick),
-                             decoder_calls=0, read_ns=0, q8_launches=0)
+                             decoder_calls=0, read_ns=0, q8_launches=0, kv_write_launches=0)
         if self.vad is not None:
             self._run_vad_batched()
 

@@ -52,7 +52,7 @@ from moonshine_tpu_torch.core.device import resolve_device  # noqa: E402
 
 OWN_KERNELS = ("encoder_attention_mma_kernel", "encoder_attention_f32_kernel",
                "gather_rows", "layer_norm_warp_kernel",
-               "layer_norm_block_kernel")  # csrc/*.cu
+               "layer_norm_block_kernel", "kv_write_kernel")  # csrc/*.cu
 
 
 def device_us(prof) -> tuple[float, list]:

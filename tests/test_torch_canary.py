@@ -199,6 +199,40 @@ def test_prefill_then_cached_decode_matches_the_full_forward(model_and_weights, 
         torch.testing.assert_close(got[i], expect, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float32", "int8-kv"])
+def test_cached_decode_under_autograd_keeps_its_writes(model_and_weights, kv_int8):
+    """Where autograd records the new keys, the cursor writes copies and
+    ``decoder_apply`` returns them as the cache: the prompt and three
+    cached steps give the logits they give with no graph recorded.  Only
+    the memory requires grad, so the first layer's keys (from the token
+    embeddings) are written in place and the later layers' into copies."""
+    model, _ = model_and_weights
+    audio, lengths = _clips([20000, 9000])
+    with torch.inference_mode():
+        memory, mask = cm.encode(model, CFG, audio, lengths)
+    memory, mask = memory.clone().requires_grad_(), mask.clone()
+    tokens = torch.cat([torch.tensor([CFG.prompt_ids] * 2),
+                        torch.randint(0, CFG.vocab_size, (2, 3),
+                                      generator=torch.Generator().manual_seed(6))], dim=1)
+    p = len(CFG.prompt_ids)
+
+    def run():
+        kc, vc = model.compute_cross_kv(CFG, memory)
+        cache = model.init_cache(CFG, 2, p + 3, kc, vc, mask, dtype=memory.dtype,
+                                 kv_int8=kv_int8)
+        rows = []
+        for lo, hi in [(0, p), (p, p + 1), (p + 1, p + 2), (p + 2, p + 3)]:
+            logits, cache, _ = model.decoder_apply(CFG, tokens[:, lo:hi], cache)
+            rows.append(logits)
+        return torch.cat(rows, dim=1)
+
+    with torch.no_grad():
+        expect = run()
+    got = run()
+    assert got.requires_grad
+    torch.testing.assert_close(got.detach(), expect, atol=0, rtol=0)
+
+
 def test_greedy_decode_runs_the_prompt_and_counts_it(model_and_weights):
     from moonshine_tpu_torch import profiling
 

@@ -1,7 +1,8 @@
 """K5, the fused int8-KV decode attention (``ops/int8_kv.attention_dm_q8``
 on CUDA tensors, ``csrc/int8_attention.cu``), against the plain einsums on
 the same card tensors; and, on the CPU, the wrapper's argument checks, its
-counters, and ``write_kv`` / ``attend_kv`` against the write-then-attend
+counters, and ``write_kv`` / ``attend_kv`` under each column rule
+(``int8_kv.Cursor``, ``int8_kv.RowStarts``) against the write-then-attend
 sequences the decoders ran themselves.  The plain version itself is held
 against the JAX package in ``tests/test_torch_layers.py::test_attention_dm_q8``.
 
@@ -28,6 +29,7 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 from moonshine_tpu_torch import profiling
 from moonshine_tpu_torch.decoding.greedy import greedy_decode
+from moonshine_tpu_torch.models import streaming_batch as sb
 from moonshine_tpu_torch.ops import int8_kv as q8
 
 TOL = {torch.bfloat16: (2.0**-8, 2.0**-7), torch.float32: (1e-5, 1e-5)}
@@ -281,31 +283,71 @@ def _attention_dm_before(q, k, v, mask, with_weights):
     return (out, weights) if with_weights else out
 
 
+def _write_before(kv, k_new, v_new, put):
+    """A decoder's K/V write before the format moved behind
+    ``ops/int8_kv.py``: quantize K, then V, write K, V and their scales; or
+    the float write."""
+    if kv.k_scale is None:
+        return q8.LayerKV(put(kv.k, k_new.to(kv.k.dtype)), put(kv.v, v_new.to(kv.v.dtype)))
+    (kq, ks), (vq, vs) = q8.quantize_kv(k_new), q8.quantize_kv(v_new)
+    return q8.LayerKV(put(kv.k, kq), put(kv.v, vq), put(kv.k_scale, ks), put(kv.v_scale, vs))
+
+
 def _write_attend_before(q, kv, k_new, v_new, put, mask, with_weights):
     """A decoder's self-attention block before the format moved behind
-    ``ops/int8_kv.py``: quantize K, then V, write K, V and their scales, K5's
-    plain version; or the float write and the float attention."""
-    if kv.k_scale is None:
-        k, v = put(kv.k, k_new.to(kv.k.dtype)), put(kv.v, v_new.to(kv.v.dtype))
+    ``ops/int8_kv.py``: the write, then K5's plain version or the float
+    attention."""
+    k, v, k_s, v_s = _write_before(kv, k_new, v_new, put)
+    if k_s is None:
         return _attention_dm_before(q, k.to(q.dtype), v.to(q.dtype), mask, with_weights)
-    (kq, ks), (vq, vs) = q8.quantize_kv(k_new), q8.quantize_kv(v_new)
-    k, v, k_s, v_s = put(kv.k, kq), put(kv.v, vq), put(kv.k_scale, ks), put(kv.v_scale, vs)
     fn = q8.attention_dm_q8_with_weights if with_weights else q8.attention_dm_q8
     return fn(q, k, k_s, v, v_s, mask)
 
 
+def _write_cols_before(buf, new, start):
+    """``moonshine._write_cols`` as the Moonshine decoders held it: in place,
+    or into a copy where autograd records ``new``."""
+    if torch.is_grad_enabled() and new.requires_grad:
+        return torch.slice_scatter(buf, new, dim=-1, start=start, end=start + new.shape[-1])
+    buf[..., start:start + new.shape[-1]] = new
+    return buf
+
+
+def _canary_put_before(buf, new, start):
+    """Canary's decoder's own column write."""
+    buf[..., start:start + new.shape[-1]] = new
+    return buf
+
+
+def _put_at_before(buf, new, start):
+    """``streaming_batch._put_at``'s write: each row's columns from ``start``."""
+    return sb._write(buf, start, new, buf.dim() - 1)
+
+
+# (starts [B], the rule, the write the decoders ran before ``int8_kv`` owned
+# the rule): a host cursor (``moonshine._write_cols``, the offline decoders;
+# Canary's own write) and per-row starts (the service's ``_put_at``: int64
+# cursors, and int32 ones past both ends, which clamp).
+RULES = {
+    "cursor": (torch.tensor([5, 5, 5]), q8.Cursor(5), _write_cols_before),
+    "canary_cursor": (torch.tensor([5, 5, 5]), q8.Cursor(5), _canary_put_before),
+    "per_row": (torch.tensor([0, 5, 10]), None, _put_at_before),
+    "per_row_int32_clamped": (torch.tensor([-3, 5, 11], dtype=torch.int32), None,
+                              _put_at_before),
+}
+
+
 @pytest.mark.parametrize("with_weights", [False, True], ids=["out", "weights"])
-@pytest.mark.parametrize("put_kind", ["cursor", "per_row"])
+@pytest.mark.parametrize("put_kind", list(RULES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
 def test_write_and_attend_are_the_sequences_they_replace(int8, dtype, put_kind, with_weights):
     """``write_kv`` then ``attend_kv`` leave the same caches and give the
     same output (and weights), bit for bit, as the sequence each decoder
-    ran: at a host cursor (``moonshine._write_cols``, the offline decoders)
-    and at a per-row start (``streaming_batch._write``, the service)."""
-    from moonshine_tpu_torch.models import moonshine as mm
-    from moonshine_tpu_torch.models import streaming_batch as sb
-
+    ran, under each column rule of ``RULES``: a host cursor
+    (:class:`int8_kv.Cursor`) where the offline decoders wrote at
+    ``cur_len``, per-row starts (:class:`int8_kv.RowStarts`) where the
+    service wrote at each stream's cursor."""
     b, s, h, hd, t = 3, 2, 2, 8, 12
     g = torch.Generator().manual_seed(11)
     q = torch.randn((b, s, h, hd), generator=g).to(dtype)
@@ -316,25 +358,59 @@ def test_write_and_attend_are_the_sequences_they_replace(int8, dtype, put_kind, 
         caches = q8.LayerKV(kq, vq, ks, vs)
     else:
         caches = q8.LayerKV(old_k.to(dtype), old_v.to(dtype))
-    if put_kind == "cursor":
-        start = torch.full((b,), 5)
-        put = lambda buf, new: mm._write_cols(buf, new, 5)  # noqa: E731
-    else:
-        start = torch.tensor([0, 5, 10])
-        put = lambda buf, new: sb._write(buf, start, new, buf.dim() - 1)  # noqa: E731
-    mask = (torch.arange(t) <= (start[:, None] + torch.arange(s))[..., None])[:, None]
+    start, rule, before = RULES[put_kind]
+    rule = rule or q8.RowStarts(start)
+    at = rule.start if isinstance(rule, q8.Cursor) else start
+    put = lambda buf, new: before(buf, new, at)  # noqa: E731
+    first = start.long().clamp(0, t - s)  # the columns each row's write starts at
+    mask = (torch.arange(t) <= (first[:, None] + torch.arange(s))[..., None])[:, None]
     mask[1, ..., 7] = False  # a key hidden from every query of row 1
 
     ref_kv = q8.LayerKV(*(None if x is None else x.clone() for x in caches))
     expect = _write_attend_before(q, ref_kv, k_new, v_new, put, mask, with_weights)
-    written = q8.write_kv(caches, k_new, v_new, put)
+    written = q8.write_kv(caches, k_new, v_new, rule)
     got = q8.attend_kv(q, written, mask, with_weights)
     for x, y in zip(written, ref_kv):
         assert (x is None and y is None) or torch.equal(x, y)
     for x, y in zip(got if with_weights else [got], expect if with_weights else [expect]):
         assert x.dtype == y.dtype and torch.equal(x, y)
     # The writes landed in place, at the rows' columns.
-    cols = start[:, None] + torch.arange(s)
+    cols = first[:, None] + torch.arange(s)
     new_k = written.k.gather(-1, cols[:, None, None, :].expand(b, h, hd, s))
     assert written.k.data_ptr() == caches.k.data_ptr()
     assert torch.equal(new_k, q8.quantize_kv(k_new)[0] if int8 else k_new)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_cursor_under_autograd_writes_what_write_cols_wrote(int8):
+    """Where autograd records the new K/V (a trainer's decoder), the host
+    cursor writes what ``moonshine._write_cols`` wrote, values and
+    gradients: copies of what carries a gradient (float caches' K and V, int8
+    caches' scales), so the caches handed in keep those untouched."""
+    b, s, h, hd, t = 2, 3, 2, 4, 9
+    g = torch.Generator().manual_seed(5)
+    k_new, v_new = (torch.randn((b, h, hd, s), generator=g).requires_grad_() for _ in range(2))
+    old_k, old_v = torch.randn((b, h, hd, t), generator=g), torch.randn((b, h, hd, t), generator=g)
+    if int8:
+        (kq, ks), (vq, vs) = q8.quantize_kv(old_k), q8.quantize_kv(old_v)
+        caches = q8.LayerKV(kq, vq, ks, vs)
+    else:
+        caches = q8.LayerKV(old_k, old_v)
+    ref_kv = q8.LayerKV(*(None if x is None else x.clone() for x in caches))
+    kept = q8.LayerKV(*(None if x is None else x.clone() for x in caches))
+    got = q8.write_kv(caches, k_new, v_new, q8.Cursor(4))
+    expect = _write_before(ref_kv, k_new, v_new, lambda buf, new: _write_cols_before(buf, new, 4))
+
+    def grads(written):
+        loss = sum((x * (i + 1)).sum() for i, x in enumerate(written)
+                   if x is not None and x.requires_grad)
+        return torch.autograd.grad(loss, (k_new, v_new), allow_unused=True)
+
+    for x, y in zip(got, expect):
+        assert (x is None and y is None) or (torch.equal(x, y)
+                                             and x.requires_grad == y.requires_grad)
+    for x, y in zip(grads(got), grads(expect)):
+        assert (x is None and y is None) or torch.equal(x, y)
+    for x, y, w in zip(caches, kept, got):
+        if w is not None and w.requires_grad:
+            assert torch.equal(x, y) and w.data_ptr() != x.data_ptr()

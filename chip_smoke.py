@@ -617,6 +617,23 @@ Q8_SHAPES = [
     ("canary prefill self", 128, 5, 8, 128, 170, 170, "causal"),
     ("canary prefill cross", 128, 5, 8, 128, 513, 513, "memory"),
 ]
+# (label, B, s, H, H_kv, hd, T, the cache buffer's columns, mask): grouped
+# heads, Canary-Qwen's LLM decode at B=128, 16 q heads over 8 K/V heads of
+# 128, s=1, over 300 and 700 columns (about the 20.48 s and 40.96 s
+# buckets' prompts and tokens), under the decode's own mask: causal from
+# each row's first column, the rows left-padded by 0 to 63 columns.
+Q8_GROUPED_SHAPES = [
+    ("canary-qwen step 300", 128, 1, 16, 8, 128, 300, 300, "rows"),
+    ("canary-qwen step 700", 128, 1, 16, 8, 128, 700, 700, "rows"),
+]
+
+
+def q8_shapes():
+    """Q8_SHAPES (one K/V head a q head) and Q8_GROUPED_SHAPES, each as
+    (label, B, s, H, H_kv, hd, T, columns, mask)."""
+    for label, b, s, h, hd, t, cols, mask_kind in Q8_SHAPES:
+        yield label, b, s, h, h, hd, t, cols, mask_kind
+    yield from Q8_GROUPED_SHAPES
 
 
 def q8_count() -> int:
@@ -626,23 +643,30 @@ def q8_count() -> int:
     return profiling.counter(Q8_LAUNCHES)
 
 
-def q8_inputs(b, s, h, hd, t, cols, mask_kind, dtype, seed):
-    """q and int8 caches quantized from normal values on the card (the
+def q8_inputs(b, s, h, hd, t, cols, mask_kind, dtype, seed, hk=None):
+    """q [B, s, H, hd] and int8 caches of ``hk`` heads (H unless named)
+    quantized from normal values on the card (the
     first T columns of a ``cols``-column buffer), and a bool mask: causal
-    over the cache's last s positions [1, 1, s, T], or a memory mask
-    [B, 1, 1, T] of lengths from T down to T/2."""
+    over the cache's last s positions [1, 1, s, T]; the same from each
+    row's first column [B, 1, s, T] (``rows``: rows left-padded by 0 to 63
+    columns, as Canary-Qwen's prompts are); or a memory mask [B, 1, 1, T] of
+    lengths from T down to T/2."""
     from moonshine_tpu_torch.ops.int8_kv import quantize_kv
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, s, h, hd), device="cuda", generator=g).to(dtype)
     caches = []
     for spread in (3.0, 1.0):
-        x = torch.randn((b, h, hd, cols), device="cuda", generator=g) * spread
+        x = torch.randn((b, hk or h, hd, cols), device="cuda", generator=g) * spread
         xq, xs = quantize_kv(x)
         caches += [xq[..., :t], xs[..., :t]]
     key = torch.arange(t, device="cuda")
+    causal = key[None, :] <= t - s + torch.arange(s, device="cuda")[:, None]
     if mask_kind == "causal":
-        mask = (key[None, :] <= t - s + torch.arange(s, device="cuda")[:, None])[None, None]
+        mask = causal[None, None]
+    elif mask_kind == "rows":
+        first = torch.arange(b, device="cuda") * 64 // b
+        mask = (causal[None] & (key[None, None, :] >= first[:, None, None]))[:, None]
     else:
         lengths = t - torch.arange(b, device="cuda") * t // (2 * b)
         mask = (key[None, :] < lengths[:, None])[:, None, None, :]
@@ -663,9 +687,9 @@ def phase_q8_vs_plain(q8) -> float:
     of Q8_SHAPES, in bf16 and float32, within Q8_TOL; returns the largest
     relative RMS error."""
     worst = 0.0
-    for label, b, s, h, hd, t, cols, mask_kind in Q8_SHAPES:
+    for label, b, s, h, hk, hd, t, cols, mask_kind in q8_shapes():
         for dtype in (torch.bfloat16, torch.float32):
-            args = q8_inputs(b, s, h, hd, t, cols, mask_kind, dtype, seed=b + s + t)
+            args = q8_inputs(b, s, h, hd, t, cols, mask_kind, dtype, seed=b + s + t, hk=hk)
             before = q8_count()
             out = q8.attention_dm_q8(*args)
             torch.cuda.synchronize()
@@ -673,7 +697,8 @@ def phase_q8_vs_plain(q8) -> float:
             rms, elem = q8_errors(out, ref)
             worst = max(worst, rms)
             ok = q8_count() == before + 1 and rms <= Q8_TOL[dtype][0] and elem <= Q8_TOL[dtype][1]
-            log(f"  K5 {label} B={b} s={s} H={h} hd={hd} T={t} {str(dtype)[6:]}: relative RMS "
+            log(f"  K5 {label} B={b} s={s} H={h} H_kv={hk} hd={hd} T={t} {str(dtype)[6:]}: "
+                f"relative RMS "
                 f"{rms:.3g}, largest {elem:.3g} of max|plain| (limits {Q8_TOL[dtype]}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -701,8 +726,9 @@ def q8_bound(args) -> dict:
 
 def phase_q8_times(q8) -> dict:
     """K5, its plain version and the yardstick (SDPA on the bf16 cache
-    dequantized beforehand, which the port never calls) at every shape of
-    Q8_SHAPES in bf16, beside the bound.  Before each timed call the card
+    dequantized beforehand, its heads repeated to q's where grouped, which
+    the port never calls) at every shape of Q8_SHAPES and
+    Q8_GROUPED_SHAPES in bf16, beside the bound.  Before each timed call the card
     reads twice its L2 and then spins, as for K3 and K4, so the caches come
     from device memory and the time is the device's alone."""
     from moonshine_tpu_torch.ops.int8_kv import dequantize_kv
@@ -715,24 +741,26 @@ def phase_q8_times(q8) -> dict:
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for label, b, s, h, hd, t, cols, mask_kind in Q8_SHAPES:
+    for label, b, s, h, hk, hd, t, cols, mask_kind in q8_shapes():
         dtype = torch.bfloat16
-        args = q8_inputs(b, s, h, hd, t, cols, mask_kind, dtype, seed=7)
+        args = q8_inputs(b, s, h, hd, t, cols, mask_kind, dtype, seed=7, hk=hk)
         q, kq, ks, vq, vs, mask = args
         kernel_ms = cuda_time_ms(lambda: q8.attention_dm_q8(*args), before=before)
         plain_ms = cuda_time_ms(lambda: q8.attention_dm_q8_with_weights(*args)[0], before=before)
         qh = q.transpose(1, 2)
-        kd = dequantize_kv(kq, ks, dtype).transpose(2, 3)
-        vd = dequantize_kv(vq, vs, dtype).transpose(2, 3)
+        kd = dequantize_kv(kq, ks, dtype).repeat_interleave(h // hk, dim=1).transpose(2, 3)
+        vd = dequantize_kv(vq, vs, dtype).repeat_interleave(h // hk, dim=1).transpose(2, 3)
         library_ms = cuda_time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask), before=before)
         del kd, vd
-        res = {"shape": [b, s, h, hd, t], "buffer_columns": cols, "dtype": "bfloat16",
+        res = {"shape": [b, s, h, hd, t], "kv_heads": hk, "buffer_columns": cols,
+               "dtype": "bfloat16",
                "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                **q8_bound(args)}
-        log(f"  K5 {label} B={b} s={s} H={h} hd={hd} T={t} bf16: kernel {kernel_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, SDPA on the bf16 cache {library_ms:.4f} ms, bound "
-            f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {res['bytes'] / 1e6:.1f} MB, "
-            f"{res['flops'] / 1e9:.2f} GFLOP) -> {res['bound_ms'] / kernel_ms:.1%} of bound")
+        log(f"  K5 {label} B={b} s={s} H={h} H_kv={hk} hd={hd} T={t} bf16: kernel "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the bf16 cache "
+            f"{library_ms:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+            f"{res['bytes'] / 1e6:.1f} MB, {res['flops'] / 1e9:.2f} GFLOP) -> "
+            f"{res['bound_ms'] / kernel_ms:.1%} of bound")
         out[label] = res
     return out
 
@@ -859,7 +887,11 @@ def phase_ln_times(ln) -> dict:
 # gives the same shape); the service's decode step and verify at the draft
 # cap into the 448-column self caches, and its ingest of a 128-frame block
 # into the 3,200-column cross caches, at each stream's int32 cursor;
-# Canary's decode at s=1 and its 5-token prompt at a host cursor.
+# Canary's decode at s=1 and its 5-token prompt at a host cursor;
+# Canary-Qwen's LLM (8 K/V heads of 128 at B=128): its decode step at a host
+# cursor, and its prompt's call, which writes the whole left-padded prompt
+# from column 0 (``start``): 271 columns in the 20.48 s bucket's cache of
+# 353, 527 in the 40.96 s bucket's of 691.
 KVW_SHAPES = [
     ("b64 decode", 64, 8, 52, 1, 41, "cursor"),
     ("serve decode", 32, 11, 64, 1, 448, "rows"),
@@ -867,6 +899,9 @@ KVW_SHAPES = [
     ("serve ingest", 32, 11, 64, 128, 3200, "rows"),
     ("canary decode", 128, 8, 128, 1, 170, "cursor"),
     ("canary prefill", 128, 8, 128, 5, 170, "cursor"),
+    ("canary-qwen decode", 128, 8, 128, 1, 353, "cursor"),
+    ("canary-qwen prefill 20.48 s", 128, 8, 128, 271, 353, "start"),
+    ("canary-qwen prefill 40.96 s", 128, 8, 128, 527, 691, "start"),
 ]
 
 
@@ -880,8 +915,9 @@ def kvw_count() -> int:
 def kvw_inputs(b, h, hd, s, t, rule, dtype, seed):
     """New K and V as the decoders hand them (``[B, s, H, hd]`` permuted to
     ``[B, H, hd, s]``), int8 caches holding earlier columns, and the
-    rule: a host cursor three columns before the end, or int32 per-row
-    starts spread over the cache, on the card."""
+    rule: a host cursor three columns before the end, one at column 0
+    (``start``), or int32 per-row starts spread over the cache, on the
+    card."""
     from moonshine_tpu_torch.ops import int8_kv as q8
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -890,8 +926,8 @@ def kvw_inputs(b, h, hd, s, t, rule, dtype, seed):
     kv = q8.LayerKV(*(torch.randint(-127, 128, (b, h, hd, t), device="cuda", generator=g,
                                     dtype=torch.int8) for _ in range(2)),
                     *(torch.rand((b, h, t), device="cuda", generator=g) + 0.5 for _ in range(2)))
-    if rule == "cursor":
-        cols = q8.Cursor(t - s - 3)
+    if rule in ("cursor", "start"):
+        cols = q8.Cursor(t - s - 3 if rule == "cursor" else 0)
     else:
         cols = q8.RowStarts(torch.randint(0, t - s + 1, (b,), device="cuda", generator=g,
                                           dtype=torch.int32))

@@ -55,6 +55,7 @@ from .core.device import resolve_device
 from .core.tokenizer import BinTokenizer
 from .core.types import Transcript
 from .models.canary import CANARY_1B_FLASH, CanaryArchConfig
+from .models.canary_qwen import CANARY_QWEN_2_5B, CanaryQwenArchConfig
 from .pipeline.transcriber import Stream
 from .pipeline.transcriber import Transcriber as _PipelineTranscriber
 from .pipeline.transcriber import TranscriptEventListener  # noqa: F401  (re-export)
@@ -65,7 +66,8 @@ class Transcriber:
 
     def __init__(
         self,
-        model: str | MoonshineArchConfig | StreamingConfig | CanaryArchConfig = "tiny",
+        model: str | MoonshineArchConfig | StreamingConfig | CanaryArchConfig
+        | CanaryQwenArchConfig = "tiny",
         language: str = "en",
         weights: str | Path | None = None,
         tokenizer_path: str | Path | None = None,
@@ -75,8 +77,8 @@ class Transcriber:
         *,
         device: str | torch.device | None = None,
     ):
-        # ``model`` is an ARCHS/STREAMING_ARCHS key, "canary-1b-flash" or a
-        # config instance.
+        # ``model`` is an ARCHS/STREAMING_ARCHS key, "canary-1b-flash",
+        # "canary-qwen-2.5b" or a config instance.
         self._model = model
         self._language = language
         self._weights = weights
@@ -103,7 +105,8 @@ class Transcriber:
 
     def with_params(self, params) -> "Transcriber":
         """Use an in-memory model (a ``models.moonshine.Moonshine``, a
-        ``models.canary.Canary`` or a ``models.streaming.StreamingMoonshine``)."""
+        ``models.canary.Canary``, a ``models.canary_qwen.CanaryQwen`` or a
+        ``models.streaming.StreamingMoonshine``)."""
         self._params = params
         return self
 
@@ -122,10 +125,14 @@ class Transcriber:
     def _is_canary(self) -> bool:
         return isinstance(self._model, CanaryArchConfig) or self._model == CANARY_1B_FLASH.name
 
+    def _is_canary_qwen(self) -> bool:
+        return (isinstance(self._model, CanaryQwenArchConfig)
+                or self._model == CANARY_QWEN_2_5B.name)
+
     def load(self) -> "Transcriber":
         if self._pipeline is not None:
             return self
-        from .models import canary
+        from .models import canary, canary_qwen
         from .models import moonshine as mm
         from .models import streaming as ms
         from .pipeline.backends import OfflineBackend, StreamingBackend
@@ -151,6 +158,10 @@ class Transcriber:
             if self._is_canary():
                 cfg = self._model if isinstance(self._model, CanaryArchConfig) else CANARY_1B_FLASH
                 init = canary.init_params
+            elif self._is_canary_qwen():
+                cfg = (self._model if isinstance(self._model, CanaryQwenArchConfig)
+                       else CANARY_QWEN_2_5B)
+                init = canary_qwen.init_params
             else:
                 cfg = self._model if isinstance(self._model, MoonshineArchConfig) else (
                     ARCHS[self._model])
@@ -225,9 +236,10 @@ class Transcriber:
                 pass
         if self._weights is None:
             return init_fn(), cfg
-        if self._is_canary():
+        if self._is_canary() or self._is_canary_qwen():
+            name = "Canary-Qwen" if self._is_canary_qwen() else "Canary"
             raise NotImplementedError(
-                f"no importer of Canary checkpoints yet ({self._weights}): pass the model "
+                f"no importer of {name} checkpoints yet ({self._weights}): pass the model "
                 "with with_params(), or no weights for random ones from seed")
         from .weights import import_hf_moonshine, import_streaming, load_streaming_checkpoint
 

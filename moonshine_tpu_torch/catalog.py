@@ -76,7 +76,12 @@ for _m in ("tiny_streaming", "small_streaming", "medium_streaming"):
 # tokenizer.model beside the weights; sizes and checksums unchecked.
 CANARY_ENTRY = CatalogEntry("canary-1b-flash", "en",
                             (CatalogFile("model.safetensors"), CatalogFile("tokenizer.model")))
-PORT_CATALOG: dict[str, CatalogEntry] = {CANARY_ENTRY.key: CANARY_ENTRY}
+# Canary-Qwen-2.5B (https://huggingface.co/nvidia/canary-qwen-2.5b): Canary's
+# encoder and Qwen3-1.7B; Qwen's tokenizer.json beside the weights (a .nemo
+# checkpoint converted to safetensors); sizes and checksums unchecked.
+CANARY_QWEN_ENTRY = CatalogEntry("canary-qwen-2.5b", "en",
+                                 (CatalogFile("model.safetensors"), CatalogFile("tokenizer.json")))
+PORT_CATALOG: dict[str, CatalogEntry] = {e.key: e for e in (CANARY_ENTRY, CANARY_QWEN_ENTRY)}
 
 VAD_ENTRY = CatalogEntry("vad", "any", (CatalogFile("vad.safetensors"),))
 EMBEDDING_ENTRY = CatalogEntry(

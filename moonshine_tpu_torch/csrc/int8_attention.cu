@@ -16,6 +16,11 @@
 //   wv[t] = io(w[t] * v_s[t])             rounded to q's dtype
 //   out[i,d] = io(sum_t wv[t] v_q[d,t])   float32 accumulation
 //
+// Grouped heads (GQA): the caches may hold fewer heads than q, H_kv dividing
+// H; q head h reads cache head h / (H / H_kv), in place (no copy of the
+// cache is formed).  With H_kv = H that is head h itself, the same
+// addresses and sums as before grouped heads were taken.
+//
 // These are the plain version's rounding places (ops/int8_kv.py); the two
 // differ only in the order of their float32 sums.  q is bf16 or float32;
 // the products of int8 values with bf16 or float32 values are exact in
@@ -99,7 +104,8 @@ struct Params {
   long long v_sb, v_sh, v_sd;
   long long vs_sb, vs_sh;
   long long m_sb, m_sh, m_ss, m_st;  // 0 where the mask broadcasts
-  int heads, rows, cols, hd, tiles;  // H, s, T, hd, ceil(s / R)
+  int heads, rows, cols, hd, tiles;  // H (q's heads), s, T, hd, ceil(s / R)
+  int group;                         // q heads a cache head serves: H / H_kv
   int k_vec;                         // every K row starts on a 4-byte boundary
   int v_align;                       // every V row starts on a multiple of these bytes
   float scale;                       // hd^-0.5
@@ -285,6 +291,7 @@ __global__ void __launch_bounds__(kThreads, kWide ? 3 : R == 1 ? 4 : 1)
   bid /= p.tiles;
   const int h = bid % p.heads;
   const int b = bid / p.heads;
+  const int hk = h / p.group;  // the cache head q head h reads
   const int row0 = tile * R;
   const int rows = min(R, p.rows - row0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -297,8 +304,8 @@ __global__ void __launch_bounds__(kThreads, kWide ? 3 : R == 1 ? 4 : 1)
   __syncthreads();
 
   // 1. Logits, scaled and masked, into w_s; each row's max.
-  const int8_t* k = p.k + b * p.k_sb + h * p.k_sh;
-  const float* ks = p.ks + b * p.ks_sb + h * p.ks_sh;
+  const int8_t* k = p.k + b * p.k_sb + hk * p.k_sh;
+  const float* ks = p.ks + b * p.ks_sb + hk * p.ks_sh;
   const uint8_t* mask =
       p.mask == nullptr ? nullptr : p.mask + b * p.m_sb + h * p.m_sh + row0 * p.m_ss;
   float mx[R];
@@ -350,7 +357,7 @@ __global__ void __launch_bounds__(kThreads, kWide ? 3 : R == 1 ? 4 : 1)
     }
   }
   block_reduce<R, false>(sum, red, row_sum);
-  const float* vs = p.vs + b * p.vs_sb + h * p.vs_sh;
+  const float* vs = p.vs + b * p.vs_sb + hk * p.vs_sh;
   for (int t = tid; t < tp; t += kThreads) {
     const float s_t = t < T ? vs[t] : 0.f;
 #pragma unroll
@@ -361,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, kWide ? 3 : R == 1 ? 4 : 1)
   __syncthreads();
 
   // 3. P.V: warp-owned quads of V rows, lanes over columns.
-  const int8_t* v = p.v + b * p.v_sb + h * p.v_sh;
+  const int8_t* v = p.v + b * p.v_sb + hk * p.v_sh;
   Tq* out = static_cast<Tq*>(p.out);
   for (int d0 = warp * 4; d0 < hd; d0 += kWarps * 4) {
     float acc[R][4];
@@ -470,10 +477,10 @@ int aligned(const void* base, long long sb, long long sh, long long sd) {
 
 }  // namespace
 
-// q [B, s, H, hd] (q_dtype 0: float32, 1: bf16); k, v [B, H, hd, T] int8;
-// ks, vs [B, H, T] float32; mask bool broadcast to [B, H, s, T] (strides 0
+// q [B, s, H, hd] (q_dtype 0: float32, 1: bf16); k, v [B, H_kv, hd, T] int8;
+// ks, vs [B, H_kv, T] float32; mask bool broadcast to [B, H, s, T] (strides 0
 // where it broadcasts) or null; out [B, s, H, hd] contiguous in q's dtype.
-// shape: B, H, s, T, hd.  strides (elements; K, V and the scales have T
+// shape: B, H, s, T, hd, H_kv (H_kv divides H).  strides (elements; K, V and the scales have T
 // stride 1): q b s h d, k b h d, ks b h, v b h d, vs b h, mask b h s t.
 // Returns the CUDA error of the launch (0 on success); never synchronises.
 extern "C" int int8_attention(const void* q, const void* k, const void* ks, const void* v,
@@ -481,7 +488,9 @@ extern "C" int int8_attention(const void* q, const void* k, const void* ks, cons
                               const long long* shape, const long long* strides, int q_dtype,
                               float scale, void* stream) {
   const long long B = shape[0], H = shape[1], S = shape[2], T = shape[3], hd = shape[4];
+  const long long Hkv = shape[5];
   if (B <= 0 || H <= 0 || S <= 0 || T <= 0 || hd <= 0 || hd > kMaxHeadDim || T > INT_MAX / 2 ||
+      Hkv <= 0 || H % Hkv != 0 ||
       S > INT_MAX / 2 || (q_dtype != 0 && q_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -510,6 +519,7 @@ extern "C" int int8_attention(const void* q, const void* k, const void* ks, cons
   p.cols = static_cast<int>(T);
   p.hd = static_cast<int>(hd);
   p.tiles = static_cast<int>(tiles);
+  p.group = static_cast<int>(H / Hkv);
   p.k_vec = aligned(k, p.k_sb, p.k_sh, p.k_sd) >= 4;
   p.v_align = aligned(v, p.v_sb, p.v_sh, p.v_sd);
   p.scale = scale;

@@ -13,6 +13,14 @@ The decoder is the model's own: ``greedy_decode`` calls the model's
 ``models.canary.Canary`` both have.  The prompt, P tokens (Moonshine's is
 its start token, Canary's its task tokens), fills the self-attention cache
 in one decoder call.
+
+A model may instead hand it a prompt of its own per row (a decoder-only
+LM, ``models.canary_qwen.CanaryQwen``): its ``prompt_embeds(cfg, memory,
+memory_mask)`` gives (embeddings [B, P, D], each row's prompt length [B]),
+the rows left-padded to P, its ``init_cache(cfg, batch, max_len,
+prompt_lengths, dtype=, kv_int8=)`` a cache that knows each row's padding,
+and ``decoder_apply`` takes the embeddings in the prompt's call (with
+``span_parent``: greedy's ``greedy.prefill``) and token ids after it.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ def greedy_decode(
     *,
     span_parent: profiling.Span | None = None,
 ) -> GreedyResult:
-    """Records a coarse ``greedy.decode`` span (``batch``, ``prompt_tokens``,
+    """Records a coarse ``greedy.decode`` span (``batch``, ``prompt_tokens``:
+    P, ``prompt_positions``: the rows' prompt lengths summed,
     ``decoder_calls``, ``read_ns``, ``q8_launches`` and ``kv_write_launches``:
     K5's and K7's launches in the call) under ``span_parent``; with fine
     spans on, a ``greedy.prefill`` and a ``greedy.step`` a decoder call under
@@ -50,23 +59,30 @@ def greedy_decode(
     b = memory.shape[0]
     dev = memory.device
     eos = cfg.eos_token_id
-    prompt = model.decoder_prompt(cfg)
-    sp = profiling.begin("greedy.decode", span_parent, batch=b, prompt_tokens=len(prompt),
-                         read_ns=0)
+    prompt_embeds = getattr(model, "prompt_embeds", None)
+    sp = profiling.begin("greedy.decode", span_parent, batch=b, read_ns=0)
     q8, kvw = profiling.counter(Q8_LAUNCHES), profiling.counter(KV_WRITE_LAUNCHES)
     pre = profiling.child("greedy.prefill", sp)
-    k_cross, v_cross = model.compute_cross_kv(cfg, memory)
-    # The prompt's positions, then one a token.
-    cache = model.init_cache(cfg, b, max_tokens + len(prompt), k_cross, v_cross, memory_mask,
-                             dtype=memory.dtype, kv_int8=kv_int8)
+    if prompt_embeds is None:  # token ids, the same for every row
+        prompt = model.decoder_prompt(cfg)
+        n_prompt = prompt_lengths = len(prompt)
+        k_cross, v_cross = model.compute_cross_kv(cfg, memory)
+        # The prompt's positions, then one a token.
+        cache = model.init_cache(cfg, b, max_tokens + n_prompt, k_cross, v_cross, memory_mask,
+                                 dtype=memory.dtype, kv_int8=kv_int8)
+        # Copied without a wait: a blocking copy would hold the host until the encode ends.
+        ids = torch.tensor(prompt).to(dev, non_blocking=True).expand(b, -1)
+        logits, cache, _ = model.decoder_apply(cfg, ids, cache)
+    else:  # embeddings of each row's own length, left-padded to the longest
+        inputs, prompt_lengths = prompt_embeds(cfg, memory, memory_mask)
+        n_prompt = inputs.shape[1]
+        cache = model.init_cache(cfg, b, max_tokens + n_prompt, prompt_lengths,
+                                 dtype=memory.dtype, kv_int8=kv_int8)
+        logits, cache, _ = model.decoder_apply(cfg, inputs, cache, span_parent=pre)
     if token_caps is None:
         caps = torch.full((b,), max_tokens, dtype=torch.long, device=dev)
     else:
         caps = torch.clamp(torch.as_tensor(token_caps, device=dev).long(), max=max_tokens)
-
-    # Copied without a wait: a blocking copy would hold the host until the encode ends.
-    ids = torch.tensor(prompt).to(dev, non_blocking=True).expand(b, -1)
-    logits, cache, _ = model.decoder_apply(cfg, ids, cache)
     first = logits[:, -1, :].argmax(dim=-1)
 
     tokens = torch.full((b, max_tokens), eos, dtype=torch.long, device=dev)
@@ -95,6 +111,10 @@ def greedy_decode(
         step += 1
     # Stopped at max_tokens, the last step was never read.
     sp.enqueued = dev.type == "cuda" and step >= max_tokens
-    profiling.end(sp, decoder_calls=step, q8_launches=profiling.counter(Q8_LAUNCHES) - q8,
+    # Per-row lengths are read once the loop has waited for the device.
+    positions = b * prompt_lengths if isinstance(prompt_lengths, int) else int(
+        prompt_lengths.sum())
+    profiling.end(sp, prompt_tokens=n_prompt, prompt_positions=positions, decoder_calls=step,
+                  q8_launches=profiling.counter(Q8_LAUNCHES) - q8,
                   kv_write_launches=profiling.counter(KV_WRITE_LAUNCHES) - kvw)
     return GreedyResult(tokens, lengths)

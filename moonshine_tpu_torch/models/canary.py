@@ -268,26 +268,17 @@ def _conv_init(g: torch.Generator, shape: tuple) -> torch.Tensor:
     return _uniform(g, shape, (1.0 / math.prod(shape[1:])) ** 0.5)
 
 
-def init_params(cfg: CanaryArchConfig, generator: torch.Generator,
-                device: str | torch.device | None = None) -> Canary:
-    """Random weights from ``generator`` (on the CPU), then moved to
-    ``device`` (CUDA unless named): dense and conv weights and the
-    position biases uniform in +-1/sqrt(fan_in), biases 0, norms 1 and 0,
-    the BatchNorm statistics 0 and 1, the embedding N(0, 0.02^2)."""
-    g = generator
-    d, h, ch = cfg.d_model, cfg.n_heads, cfg.subsampling_channels
-    dk = cfg.head_dim
-    stages = [(Conv2d(_conv_init(g, (ch, 1, 3, 3)), torch.zeros(ch)),
-               Conv2d(_conv_init(g, (ch, ch, 1, 1)), torch.zeros(ch)))
-              for _ in range(cfg.subsampling_stages - 1)]
-    feat = ch * (cfg.n_mels >> cfg.subsampling_stages)
-    subsample = Subsampling(Conv2d(_conv_init(g, (ch, 1, 3, 3)), torch.zeros(ch)), stages,
-                            dense_init(g, feat, d))
+def conformer_layers(cfg: CanaryArchConfig, g: torch.Generator, n: int) -> list[ConformerLayer]:
+    """``n`` FastConformer layers of ``cfg``'s widths drawn from ``g``:
+    dense and conv weights and the position biases uniform in
+    +-1/sqrt(fan_in), biases 0, norms 1 and 0, the BatchNorm statistics 0
+    and 1."""
+    d, h, dk = cfg.d_model, cfg.n_heads, cfg.head_dim
 
     def ffn():
         return FeedForward(dense_init(g, d, cfg.ff_dim), dense_init(g, cfg.ff_dim, d))
 
-    layers = [
+    return [
         ConformerLayer(
             d, ffn(),
             RelPosAttention(dense_init(g, d, d), dense_init(g, d, d), dense_init(g, d, d),
@@ -297,8 +288,31 @@ def init_params(cfg: CanaryArchConfig, generator: torch.Generator,
                        Conv1d(_conv_init(g, (d, 1, cfg.conv_kernel_size)), torch.zeros(d)),
                        BatchNorm(d), dense_init(g, d, d)),
             ffn())
-        for _ in range(cfg.encoder_layers)
+        for _ in range(n)
     ]
+
+
+def encoder_init(cfg: CanaryArchConfig, g: torch.Generator) -> CanaryEncoder:
+    """The stem and the FastConformer layers drawn from ``g``."""
+    ch = cfg.subsampling_channels
+    stages = [(Conv2d(_conv_init(g, (ch, 1, 3, 3)), torch.zeros(ch)),
+               Conv2d(_conv_init(g, (ch, ch, 1, 1)), torch.zeros(ch)))
+              for _ in range(cfg.subsampling_stages - 1)]
+    feat = ch * (cfg.n_mels >> cfg.subsampling_stages)
+    subsample = Subsampling(Conv2d(_conv_init(g, (ch, 1, 3, 3)), torch.zeros(ch)), stages,
+                            dense_init(g, feat, cfg.d_model))
+    return CanaryEncoder(subsample, conformer_layers(cfg, g, cfg.encoder_layers))
+
+
+def init_params(cfg: CanaryArchConfig, generator: torch.Generator,
+                device: str | torch.device | None = None) -> Canary:
+    """Random weights from ``generator`` (on the CPU), then moved to
+    ``device`` (CUDA unless named): dense and conv weights and the
+    position biases uniform in +-1/sqrt(fan_in), biases 0, norms 1 and 0,
+    the BatchNorm statistics 0 and 1, the embedding N(0, 0.02^2)."""
+    g = generator
+    d = cfg.d_model
+    encoder = encoder_init(cfg, g)
 
     def attn():
         return mm.Attention(*(dense_init(g, d, d) for _ in range(4)))
@@ -307,8 +321,7 @@ def init_params(cfg: CanaryArchConfig, generator: torch.Generator,
                                   mm.Mlp(dense_init(g, d, cfg.ff_dim), dense_init(g, cfg.ff_dim, d)))
                   for _ in range(cfg.decoder_layers)]
     embed = torch.randn((cfg.vocab_size, d), generator=g) * 0.02
-    model = Canary(CanaryEncoder(subsample, layers),
-                   CanaryDecoder(embed, dec_layers, d, cfg.vocab_size))
+    model = Canary(encoder, CanaryDecoder(embed, dec_layers, d, cfg.vocab_size))
     return model.to(resolve_device(device))
 
 
@@ -449,25 +462,39 @@ def encode(
     ``samples``, ``model``, ``frames``: T, ``relpos_calls``), enqueued on
     CUDA, and its fine spans under the profiler (module docstring)."""
     b, n = audio.shape
-    dev = audio.device
     sp = profiling.begin("encode", span_parent, batch=b, samples=n, model=cfg.name)
+    x, mask = encoder_forward(model.encoder, cfg, audio, lengths, sp)
+    sp.enqueued = audio.device.type == "cuda"
+    profiling.end(sp, frames=x.shape[1], relpos_calls=len(model.encoder.layers))
+    return x, mask
+
+
+def encoder_forward(enc: CanaryEncoder, cfg: CanaryArchConfig, audio: torch.Tensor,
+                    lengths: torch.Tensor | None, sp: profiling.Span | None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The features, the stem and the FastConformer layers of ``enc``:
+    audio [B, N] -> (x [B, T, D], frame mask [B, T]), the fine spans under
+    ``sp``; ``encode`` without its coarse span."""
+    dev = audio.device
     st = profiling.child("canary.frontend", sp)
     feats, frames = nemo_log_mel(audio, lengths, cfg.n_fft, cfg.win_length, cfg.hop_length,
                                  cfg.n_mels, cfg.sample_rate, cfg.preemph)
     profiling.end(st)
     st = profiling.child("canary.subsample", sp)
-    enc = model.encoder
     x, valid = subsample(enc.subsample, cfg, feats.to(enc.subsample.out.weight.dtype), frames)
     profiling.end(st)
     t = x.shape[1]
     mask = torch.arange(t, device=dev)[None, :] < valid[:, None]
-    key_mask = mask if lengths is not None else None
-    pe = relative_positions(t, cfg.d_model, dev, x.dtype)
-    for lp in enc.layers:
+    return conformer_stack(enc.layers, cfg, x, mask if lengths is not None else None, sp), mask
+
+
+def conformer_stack(layers, cfg: CanaryArchConfig, x: torch.Tensor, key_mask, sp) -> torch.Tensor:
+    """x [B, T, D] through ``layers`` (``ConformerLayer``s), the frames
+    past ``key_mask`` [B, T] (None: every frame) hidden as keys."""
+    pe = relative_positions(x.shape[1], cfg.d_model, x.device, x.dtype)
+    for lp in layers:
         x = conformer_layer(lp, cfg, x, pe, key_mask, sp)
-    sp.enqueued = dev.type == "cuda"
-    profiling.end(sp, frames=t, relpos_calls=len(enc.layers))
-    return x, mask
+    return x
 
 
 # =========================================================================

@@ -7,7 +7,10 @@ past both attention contractions:
   K:  logits[s,t] = (sum_d q[s,d] * k_q[d,t]) * ks[t]
   V:  out[s,d]    = sum_t (w[s,t] * vs[t]) * v_q[d,t]
 
-Cache layout is dim-major ``[.., hd, T]`` with scales ``[.., T]``.
+Cache layout is dim-major ``[.., hd, T]`` with scales ``[.., T]``.  The
+caches may hold fewer heads than q (grouped-query attention): with H_kv
+cache heads dividing q's H, q head h reads cache head h // (H / H_kv), in
+place on every path (K5 indexes it; the plain versions group q's heads).
 
 This module owns the decoders' KV-cache format: a layer's caches travel
 as one :class:`LayerKV`, :func:`write_kv` stores new keys and values in
@@ -135,7 +138,8 @@ def write_kv(kv: LayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
 
 def attend_kv(q: torch.Tensor, kv: LayerKV, mask: torch.Tensor | None,
               with_weights: bool = False):
-    """Attention of q [B, s, H, hd] over a layer's caches [B, H, hd, T]:
+    """Attention of q [B, s, H, hd] over a layer's caches [B, H_kv, hd, T]
+    (H_kv dividing H; see the module docstring):
     ``attention_dm_q8`` over int8 caches, :func:`attention_dm` over float
     caches read in q's dtype.  With ``with_weights`` also returns the
     float32 softmax weights [B, H, s, T]."""
@@ -145,15 +149,30 @@ def attend_kv(q: torch.Tensor, kv: LayerKV, mask: torch.Tensor | None,
     return attention_dm_q8_with_weights(*args) if with_weights else attention_dm_q8(*args)
 
 
+def _grouped_qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [B, s, H, hd] against dim-major k [B, H_kv, hd, T] (float32
+    operands): [B, H_kv, H / H_kv, s, T], q head h against cache head
+    h // (H / H_kv)."""
+    b, s, h, hd = q.shape
+    hk = k.shape[1]
+    return torch.einsum("bskgd,bkdt->bkgst", q.reshape(b, s, hk, h // hk, hd), k)
+
+
+def _grouped_pv(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Weights [B, H_kv, H / H_kv, s, T] times dim-major v [B, H_kv, hd, T]:
+    [B, s, H, hd]."""
+    return torch.einsum("bkgst,bkdt->bskgd", w, v).flatten(2, 3)
+
+
 def attention_dm(q, k, v, mask, with_weights: bool = False):
-    """Attention over float dim-major K/V [B, H, hd, T]; with
+    """Attention over float dim-major K/V [B, H_kv, hd, T]; with
     ``with_weights`` also returns the float32 softmax weights [B, H, s, T]."""
     scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bshd,bhdt->bhst", q.float(), k.float()) * scale
+    logits = _grouped_qk(q.float(), k.float()).flatten(1, 2) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhst,bhdt->bshd", weights.to(q.dtype), v)
+    out = _grouped_pv(weights.to(q.dtype).unflatten(1, (k.shape[1], -1)), v)
     return (out, weights) if with_weights else out
 
 
@@ -183,8 +202,8 @@ def _logits_q8(q, k_q, k_s, mask):
     # int8 and bf16 values are exact in float32, so a float32 product is
     # the JAX "operands in q.dtype, float32 accumulation" contraction.
     scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bshd,bhdt->bhst", q.float(), k_q.float())
-    logits = logits * (k_s * scale)[:, :, None, :]
+    logits = _grouped_qk(q.float(), k_q.float()) * (k_s * scale)[:, :, None, None, :]
+    logits = logits.flatten(1, 2)
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     return torch.softmax(logits, dim=-1)
@@ -219,12 +238,13 @@ def _check(q, k_q, k_s, v_q, v_s, mask) -> None:
         raise ValueError(f"q must be [B, s, H, hd] and k_q [B, H, hd, T]; got "
                          f"{tuple(q.shape)} and {tuple(k_q.shape)}")
     b, s, h, hd = q.shape
-    t = k_q.shape[3]
-    if tuple(k_q.shape) != (b, h, hd, t) or v_q.shape != k_q.shape:
-        raise ValueError(f"k_q and v_q must be [B, H, hd, T] = [{b}, {h}, {hd}, T]; got "
-                         f"{tuple(k_q.shape)} and {tuple(v_q.shape)}")
-    if tuple(k_s.shape) != (b, h, t) or v_s.shape != k_s.shape:
-        raise ValueError(f"k_s and v_s must be [B, H, T] = {(b, h, t)}; got "
+    hk, t = k_q.shape[1], k_q.shape[3]
+    if (tuple(k_q.shape) != (b, hk, hd, t) or hk < 1 or h % hk
+            or v_q.shape != k_q.shape):
+        raise ValueError(f"k_q and v_q must be [B, H_kv, hd, T] = [{b}, H_kv, {hd}, T] with "
+                         f"H_kv dividing H = {h}; got {tuple(k_q.shape)} and {tuple(v_q.shape)}")
+    if tuple(k_s.shape) != (b, hk, t) or v_s.shape != k_s.shape:
+        raise ValueError(f"k_s and v_s must be [B, H_kv, T] = {(b, hk, t)}; got "
                          f"{tuple(k_s.shape)} and {tuple(v_s.shape)}")
     if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
         raise TypeError(f"k_q and v_q must be int8; got {k_q.dtype} and {v_q.dtype}")
@@ -285,12 +305,12 @@ def _launch(q, k_q, k_s, v_q, v_s, mask) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel()(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
                        v_s.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
-                       (ctypes.c_longlong * 5)(b, h, s, t, hd),
+                       (ctypes.c_longlong * 6)(b, h, s, t, hd, k_q.shape[1]),
                        (ctypes.c_longlong * 18)(*strides), _DTYPE_CODES[q.dtype],
                        float(hd) ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"attention_dm_q8 launch failed with CUDA error {rc} (B={b}, s={s}, "
-                           f"H={h}, hd={hd}, T={t}, {q.dtype})")
+                           f"H={h}, H_kv={k_q.shape[1]}, hd={hd}, T={t}, {q.dtype})")
     profiling.count(Q8_LAUNCHES)
     return out
 
@@ -380,10 +400,10 @@ def _launch_write(kv: LayerKV, k_new, v_new, cols) -> None:
 
 def attention_dm_q8(
     q: torch.Tensor,    # [B, s, H, hd] float
-    k_q: torch.Tensor,  # [B, H, hd, T] int8
-    k_s: torch.Tensor,  # [B, H, T] f32
-    v_q: torch.Tensor,  # [B, H, hd, T] int8
-    v_s: torch.Tensor,  # [B, H, T] f32
+    k_q: torch.Tensor,  # [B, H_kv, hd, T] int8 (H_kv dividing H)
+    k_s: torch.Tensor,  # [B, H_kv, T] f32
+    v_q: torch.Tensor,  # [B, H_kv, hd, T] int8
+    v_s: torch.Tensor,  # [B, H_kv, T] f32
     mask: torch.Tensor | None,  # bool, broadcastable to [B, H, s, T]
 ) -> torch.Tensor:
     """Attention over dim-major int8 K/V with folded dequantization:
@@ -399,6 +419,6 @@ def attention_dm_q8_with_weights(q, k_q, k_s, v_q, v_s, mask):
     """``attention_dm_q8`` that also returns the softmax weights
     [B, H, s, T] (float32)."""
     weights = _logits_q8(q, k_q, k_s, mask)
-    wv = (weights * v_s[:, :, None, :]).to(q.dtype)
-    out = torch.einsum("bhst,bhdt->bshd", wv, v_q.to(q.dtype))
+    wv = (weights.unflatten(1, (k_q.shape[1], -1)) * v_s[:, :, None, None, :]).to(q.dtype)
+    out = _grouped_pv(wv, v_q.to(q.dtype))
     return out, weights

@@ -1,9 +1,10 @@
 """ASR backends: the model-facing seam of the transcription pipeline.
 
 Counterpart of the JAX package's ``pipeline/backends.py``.
-``OfflineBackend`` (the non-streaming models: Moonshine, and Canary of
-``models/canary.py``) re-transcribes each just-updated segment whole,
-through the model's own ``encode`` and ``greedy_decode``.  Audio is padded
+``OfflineBackend`` (the non-streaming models: Moonshine, Canary of
+``models/canary.py`` and Canary-Qwen of ``models/canary_qwen.py``)
+re-transcribes each just-updated segment whole, through the model's own
+``encode`` and ``greedy_decode``.  Audio is padded
 to exponential duration buckets, as in the JAX package (there so that XLA
 compiles few shapes; here it keeps the two packages' inputs, and so their
 outputs, the same).
@@ -25,6 +26,7 @@ from ..decoding.greedy import greedy_decode
 from ..models import moonshine as mm
 from ..models import streaming as ms
 from ..models.canary import Canary, CanaryArchConfig
+from ..models.canary_qwen import CanaryQwen, CanaryQwenArchConfig
 
 INTERNAL_SAMPLE_RATE = 16000
 
@@ -51,8 +53,9 @@ class AsrBackend(Protocol):
 class OfflineBackend:
     """Whole-segment greedy transcription with duration bucketing.
 
-    Runs on the device that holds ``model`` (a ``models.moonshine.Moonshine``
-    or a ``models.canary.Canary``, with its configuration).  With
+    Runs on the device that holds ``model`` (a ``models.moonshine.Moonshine``,
+    a ``models.canary.Canary`` or a ``models.canary_qwen.CanaryQwen``, with
+    its configuration).  With
     ``word_timestamps`` a final segment of a Moonshine model also gets
     per-word times from the decoder's cross-attention
     (``pipeline/alignment.py``).
@@ -60,8 +63,8 @@ class OfflineBackend:
 
     def __init__(
         self,
-        model: mm.Moonshine | Canary,
-        cfg: MoonshineArchConfig | CanaryArchConfig,
+        model: mm.Moonshine | Canary | CanaryQwen,
+        cfg: MoonshineArchConfig | CanaryArchConfig | CanaryQwenArchConfig,
         tokenizer: BinTokenizer,
         max_tokens_per_second: float = 6.5,
         min_bucket_seconds: float = 2.0,
@@ -69,9 +72,9 @@ class OfflineBackend:
         word_timestamps: bool = False,
         kv_int8: bool = False,
     ):
-        if word_timestamps and isinstance(cfg, CanaryArchConfig):
+        if word_timestamps and isinstance(cfg, (CanaryArchConfig, CanaryQwenArchConfig)):
             raise ValueError("word timestamps need the decoder's cross-attention weights, "
-                             "which the Canary decoder does not return")
+                             "which the Canary and Canary-Qwen decoders do not return")
         self.model = model
         self.device = next(model.parameters()).device
         self.cfg = cfg

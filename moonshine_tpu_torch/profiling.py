@@ -14,11 +14,13 @@ per-line latency travels inside the transcript itself.  Here:
   reads them back.  Nothing is written while the program runs.
 - **Two tiers.**  Coarse spans (:func:`span`, :func:`begin`) are one per
   call of ``greedy_decode``, ``models.moonshine.encode``,
-  ``models.canary.encode``, a service update and a backend call, always
+  ``models.canary.encode``, ``models.canary_qwen.encode``, a service update
+  and a backend call, always
   recorded: two clock reads and an append a call, with counters the host
   already knows as attributes.  Fine spans (:func:`child`, :func:`record`:
   the steps of a decode loop, the phases of an update, the parts of a
-  Canary encoder layer) are recorded only under a coarse span that opened
+  Canary encoder layer, Canary-Qwen's ``salm.adapter``, ``salm.project``
+  and ``salm.prefill``) are recorded only under a coarse span that opened
   while ``torch.profiler`` was recording or while
   :func:`enable_device_run_log` was on (``TranscriberOptions.log_model_run``
   turns it on).

@@ -66,16 +66,22 @@ def _assert_close(out: torch.Tensor, ref: torch.Tensor, dtype) -> None:
 
 
 def _masks(kind: str, b, h, s, t, device):
-    """None; a decode step's causal mask [1, 1, s, T]; a token-masked
-    prefill mask [B, 1, s, T] (padded query rows and their keys hidden,
-    so the last row of element 1 sees no key); a memory mask [B, 1, 1, T]
-    with one element fully masked."""
+    """None; a decode step's causal mask [1, 1, s, T]; the same from each
+    row's first column [B, 1, s, T] (``rows``: rows left-padded by 0 to 63
+    columns, as Canary-Qwen's prompts are); a token-masked prefill mask
+    [B, 1, s, T] (padded query rows and their keys hidden, so the last row
+    of element 1 sees no key); a memory mask [B, 1, 1, T] with one element
+    fully masked."""
     if kind == "none":
         return None
     key = torch.arange(t, device=device)
-    if kind == "causal":
+    if kind in ("causal", "rows"):
         pos = t - s + torch.arange(s, device=device)
-        return (key[None, :] <= pos[:, None])[None, None]
+        causal = key[None, :] <= pos[:, None]
+        if kind == "causal":
+            return causal[None, None]
+        first = torch.arange(b, device=device) * min(64, t) // b
+        return (causal[None] & (key[None, None, :] >= first[:, None, None]))[:, None]
     if kind == "memory":
         lengths = torch.tensor([t] + [max(t // (i + 2), 1) for i in range(b - 2)] + [0],
                                device=device)[:b]
@@ -130,6 +136,133 @@ def test_cuda_kernel_matches_plain(cuda_device, b, s, h, hd, t, cache_t, mask_ki
     assert out.dtype == dtype and out.shape == (b, s, h, hd)
     ref = q8.attention_dm_q8_with_weights(q, kq, ks, vq, vs, mask)[0]
     _assert_close(out, ref, dtype)
+
+
+def _grouped_inputs(b, s, h, hk, hd, t, dtype, device, seed=0):
+    """q [B, s, H, hd] and int8 caches of H_kv heads [B, H_kv, hd, T]."""
+    q, kq, ks, vq, vs = _inputs(b, s, hk, hd, t, dtype, device, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    q = torch.randn((b, s, h, hd), generator=g).to(device, dtype)
+    return q, kq, ks, vq, vs
+
+
+def _repeated(x: torch.Tensor, group: int) -> torch.Tensor:
+    """Cache heads repeated so that head h of the result is head h // group."""
+    return x.repeat_interleave(group, dim=1)
+
+
+# (b, s, h, h_kv, hd, t): grouped-query attention.  Canary-Qwen's LLM (16 q
+# heads over 8 K/V heads of 128) at B=128, s=1, over 300 and 700 columns
+# (the 20.48 s and 40.96 s buckets' prompts and tokens); a few query rows; a
+# tiny form; one K/V head for every q head (MQA).
+GROUPED_SHAPES = [
+    (128, 1, 16, 8, 128, 300),
+    (128, 1, 16, 8, 128, 700),
+    (4, 3, 16, 8, 128, 64),
+    (8, 1, 4, 2, 16, 33),
+    (8, 1, 6, 1, 64, 97),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask_kind", ["none", "causal", "rows", "memory"])
+@pytest.mark.parametrize("b,s,h,hk,hd,t", GROUPED_SHAPES)
+def test_cuda_grouped_kernel_matches_plain(cuda_device, b, s, h, hk, hd, t, mask_kind, dtype):
+    q, kq, ks, vq, vs = _grouped_inputs(b, s, h, hk, hd, t, dtype, cuda_device)
+    mask = _masks(mask_kind, b, h, s, t, cuda_device)
+    before = profiling.counter(q8.Q8_LAUNCHES)
+    out = q8.attention_dm_q8(q, kq, ks, vq, vs, mask)
+    torch.cuda.synchronize()
+    assert profiling.counter(q8.Q8_LAUNCHES) == before + 1
+    assert out.dtype == dtype and out.shape == (b, s, h, hd)
+    ref = q8.attention_dm_q8_with_weights(q, kq, ks, vq, vs, mask)[0]
+    _assert_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,hk,hd,t", GROUPED_SHAPES)
+def test_cuda_grouped_kernel_is_the_kernel_over_repeated_caches(cuda_device, b, s, h, hk, hd, t,
+                                                                dtype):
+    """Grouped heads read each cache head in place as the MHA kernel reads
+    a copy repeated to q's heads: the same sums, bit for bit."""
+    q, kq, ks, vq, vs = _grouped_inputs(b, s, h, hk, hd, t, dtype, cuda_device, seed=5)
+    mask = _masks("causal", b, h, s, t, cuda_device)
+    out = q8.attention_dm_q8(q, kq, ks, vq, vs, mask)
+    g = h // hk
+    full = q8.attention_dm_q8(q, *(_repeated(x, g) for x in (kq, ks, vq, vs)), mask)
+    assert torch.equal(out, full)
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "float"])
+@pytest.mark.parametrize("b,s,h,hk,hd,t", [(3, 2, 4, 2, 16, 9), (2, 1, 6, 1, 8, 5)])
+def test_cpu_grouped_attention_is_attention_over_repeated_caches(int8, b, s, h, hk, hd, t):
+    """The plain versions (int8 and float caches) with grouped heads: q head
+    h attends to cache head h // (H / H_kv), as over caches repeated to H."""
+    q, kq, ks, vq, vs = _grouped_inputs(b, s, h, hk, hd, t, torch.float32, "cpu", seed=3)
+    mask = _masks("causal", b, h, s, t, "cpu")
+    g = h // hk
+    if int8:
+        kv = q8.LayerKV(kq, vq, ks, vs)
+        full = q8.LayerKV(*(_repeated(x, g) for x in kv))
+    else:
+        kv = q8.LayerKV(q8.dequantize_kv(kq, ks), q8.dequantize_kv(vq, vs))
+        full = q8.LayerKV(_repeated(kv.k, g), _repeated(kv.v, g))
+    out, w = q8.attend_kv(q, kv, mask, with_weights=True)
+    ref, ref_w = q8.attend_kv(q, full, mask, with_weights=True)
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(w, ref_w, atol=1e-6, rtol=1e-6)
+
+
+def _attention_dm_q8_mha_before(q, k_q, k_s, v_q, v_s, mask):
+    """K5's plain version as it was before grouped heads: one cache head a
+    q head, in the MHA einsums."""
+    logits = torch.einsum("bshd,bhdt->bhst", q.float(), k_q.float())
+    logits = logits * (k_s * q.shape[-1] ** -0.5)[:, :, None, :]
+    if mask is not None:
+        logits = logits.masked_fill(~mask, q8.NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    wv = (weights * v_s[:, :, None, :]).to(q.dtype)
+    return torch.einsum("bhst,bhdt->bshd", wv, v_q.to(q.dtype)), weights
+
+
+def _plain_mha_is_the_expression_it_was(b, s, h, hd, t, mask_kind, dtype, device):
+    q, kq, ks, vq, vs = _inputs(b, s, h, hd, t, dtype, device, seed=b + s + t)
+    mask = _masks(mask_kind, b, h, s, t, device)
+    for got, expect in zip(q8.attention_dm_q8_with_weights(q, kq, ks, vq, vs, mask),
+                           _attention_dm_q8_mha_before(q, kq, ks, vq, vs, mask)):
+        assert got.dtype == expect.dtype and torch.equal(got, expect)
+    k, v = q8.dequantize_kv(kq, ks, dtype), q8.dequantize_kv(vq, vs, dtype)
+    full = torch.ones((b, 1, s, t), dtype=torch.bool, device=device) if mask is None else mask
+    for got, expect in zip(q8.attention_dm(q, k, v, full, with_weights=True),
+                           _attention_dm_before(q, k, v, full, with_weights=True)):
+        assert got.dtype == expect.dtype and torch.equal(got, expect)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask_kind", ["none", "causal", "memory", "prefill"])
+@pytest.mark.parametrize("b,s,h,hd,t", [(3, 1, 4, 16, 9), (2, 5, 8, 52, 41)])
+def test_cpu_plain_mha_is_the_expression_it_was(b, s, h, hd, t, mask_kind, dtype):
+    """With one cache head a q head, the grouped plain versions (int8 and
+    float caches) are the MHA einsums they replaced, bit for bit: the
+    grouped contraction at a group of 1 is the same product."""
+    _plain_mha_is_the_expression_it_was(b, s, h, hd, t, mask_kind, dtype, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask_kind", ["causal", "memory"])
+@pytest.mark.parametrize("b,s,h,hd,t", [(64, 1, 8, 52, 41), (128, 5, 8, 128, 513)])
+def test_cuda_plain_mha_is_the_expression_it_was(cuda_device, b, s, h, hd, t, mask_kind, dtype):
+    """The same on the card (the word timestamps' plain version runs there)."""
+    _plain_mha_is_the_expression_it_was(b, s, h, hd, t, mask_kind, dtype, cuda_device)
+
+
+def test_grouped_heads_must_divide_q_heads():
+    q, kq, ks, vq, vs = _grouped_inputs(1, 1, 6, 4, 8, 5, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="H_kv dividing"):
+        q8.attention_dm_q8(q, kq, ks, vq, vs, None)
 
 
 @pytest.mark.cuda

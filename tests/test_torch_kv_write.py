@@ -89,9 +89,11 @@ def _columns(cols, b: int, s: int, t: int) -> torch.Tensor:
 # (128 + 1 tokens) over the 448-column self cache, and its ingest of a
 # 128-frame block into the 3,200-column cross cache, with a row's new
 # frames from 0 to 128 (the rest zero, quantized to scale 1); Canary's
-# decode at B=128, 8 heads of 128, at s=1 and at the 5-token prompt; beside
-# them the widest head K7 takes, an odd head size and two tiles of a 33-token
-# prefill.
+# decode at B=128, 8 heads of 128, at s=1 and at the 5-token prompt;
+# Canary-Qwen's prompt's call (8 K/V heads of 128 at B=128): 271 columns into
+# the 20.48 s bucket's cache of 353, 527 into the 40.96 s bucket's of 691;
+# beside them the widest head K7 takes, an odd head size and two tiles of a
+# 33-token prefill.
 SHAPES = [
     ("b64", 64, 8, 52, 1, 41, None),
     ("serve", 32, 11, 64, 1, 448, None),
@@ -99,6 +101,8 @@ SHAPES = [
     ("ingest", 32, 11, 64, 128, 3200, "masked"),
     ("canary", 128, 8, 128, 1, 170, None),
     ("canary prefill", 128, 8, 128, 5, 170, None),
+    ("canary-qwen prefill 20.48 s", 128, 8, 128, 271, 353, None),
+    ("canary-qwen prefill 40.96 s", 128, 8, 128, 527, 691, None),
     ("hd 256", 4, 2, 256, 3, 20, None),
     ("hd 36", 8, 6, 36, 33, 97, None),
 ]
